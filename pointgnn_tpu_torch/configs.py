@@ -1,0 +1,165 @@
+"""Built-in model configurations (the port's own copy).
+
+Counterpart of :mod:`pointgnn_tpu.configs` (``model_config``,
+``layer_configs``, ``get_config``, ``list_configs``): the same
+reference-schema dicts, so a config is interchangeable between the two
+packages.  The TPU capacity settings are not carried over.
+"""
+
+from typing import Dict, List
+
+_MLP_WIDTH = 300
+
+
+def _pooling_layer():
+    return {
+        "scope": "layer1",
+        "type": "scatter_max_point_set_pooling",
+        "graph_level": 0,
+        "kwargs": {
+            "point_MLP_depth_list": [32, 64, 128, _MLP_WIDTH],
+            "point_MLP_normalization_type": "NONE",
+            "point_MLP_activation_type": "ReLU",
+            "output_MLP_depth_list": [_MLP_WIDTH, _MLP_WIDTH],
+            "output_MLP_normalization_type": "NONE",
+            "output_MLP_activation_type": "ReLU",
+        },
+    }
+
+
+def _gnn_layer(index: int, auto_offset: bool):
+    return {
+        "scope": "layer%d" % index,
+        "type": "scatter_max_graph_auto_center_net",
+        "graph_level": 1,
+        "kwargs": {
+            "auto_offset": auto_offset,
+            "auto_offset_MLP_depth_list": [64, 3],
+            "auto_offset_MLP_normalization_type": "NONE",
+            "auto_offset_MLP_feature_activation_type": "ReLU",
+            "edge_MLP_depth_list": [_MLP_WIDTH, _MLP_WIDTH],
+            "edge_MLP_normalization_type": "NONE",
+            "edge_MLP_activation_type": "ReLU",
+            "update_MLP_depth_list": [_MLP_WIDTH, _MLP_WIDTH],
+            "update_MLP_normalization_type": "NONE",
+            "update_MLP_activation_type": "ReLU",
+        },
+    }
+
+
+def _predictor_layer():
+    return {
+        "scope": "output",
+        "type": "classaware_predictor",
+        "graph_level": 1,
+        "kwargs": {
+            "normalization_type": "NONE",
+            "activation_type": "ReLU",
+        },
+    }
+
+
+def layer_configs(T: int, auto_offset: bool = True) -> List[Dict]:
+    """T = number of GraphNetAutoCenter iterations (T0..T3 family)."""
+    layers = [_pooling_layer()]
+    for t in range(T):
+        layers.append(_gnn_layer(t + 2, auto_offset))
+    layers.append(_predictor_layer())
+    return layers
+
+
+def _level_cfg(radius, num_neighbors, graph_level, graph_scale):
+    return {
+        "graph_gen_method": "disjointed_rnn_local_graph_v3",
+        "graph_level": graph_level,
+        "graph_scale": graph_scale,
+        "graph_gen_kwargs": {
+            "radius": radius,
+            "num_neighbors": num_neighbors,
+        },
+    }
+
+
+def model_config(
+    label_method: str = "Car",
+    T: int = 3,
+    auto_offset: bool = True,
+) -> Dict:
+    """Full "config" dict (reference JSON schema)."""
+    if label_method == "Car":
+        num_classes = 4
+        radii = (1.0, 4.0)
+        train_scale, runtime_scale = 1, 0.5
+        nms_thres = 0.01
+    elif label_method == "Pedestrian_and_Cyclist":
+        num_classes = 6
+        radii = (0.4, 1.6)
+        train_scale, runtime_scale = 0.5, 0.25
+        nms_thres = 0.2
+    elif label_method == "yaw":
+        num_classes = 8
+        radii = (1.0, 4.0)
+        train_scale, runtime_scale = 1, 0.5
+        nms_thres = 0.01
+    else:
+        raise ValueError(label_method)
+
+    return {
+        "model_name": "multi_layer_fast_local_graph_model_v2",
+        "box_encoding_method": "classaware_all_class_box_encoding",
+        "input_features": "i",
+        "label_method": label_method,
+        "num_classes": num_classes,
+        "downsample_by_voxel_size": None,
+        "nms_overlapped_thres": nms_thres,
+        "loss": {
+            "cls_loss_type": "softmax",
+            "cls_loss_weight": 0.1,
+            "loc_loss_weight": 10.0,
+        },
+        "graph_gen_method": "multi_level_local_graph_v3",
+        "graph_gen_kwargs": {
+            "base_voxel_size": 0.8,
+            "add_rnd3d": True,
+            "downsample_method": "random",
+            "level_configs": [
+                _level_cfg(radii[0], -1, 0, train_scale),
+                _level_cfg(radii[1], 256, 1, train_scale),
+            ],
+        },
+        "runtime_graph_gen_kwargs": {
+            "base_voxel_size": 0.8,
+            "add_rnd3d": False,
+            "level_configs": [
+                _level_cfg(radii[0], -1, 0, runtime_scale),
+                _level_cfg(radii[1], -1, 1, runtime_scale),
+            ],
+        },
+        "model_kwargs": {
+            "layer_configs": layer_configs(T, auto_offset),
+            "regularizer_type": "l1",
+            "regularizer_kwargs": {"scale": 5e-7},
+        },
+        "eval_is_training": True,
+    }
+
+
+def _named():
+    return {
+        "car_auto_T0_train": ("Car", 0, True),
+        "car_auto_T1_train": ("Car", 1, True),
+        "car_auto_T2_train": ("Car", 2, True),
+        "car_auto_T3_train": ("Car", 3, True),
+        "car_auto_T3_trainval": ("Car", 3, True),
+        "car_fixed_T3_train": ("Car", 3, False),
+        "ped_cyl_auto_T3_trainval": ("Pedestrian_and_Cyclist", 3, True),
+    }
+
+
+def get_config(name: str) -> Dict:
+    label, T, auto = _named()[name]
+    return model_config(label, T, auto)
+
+
+def list_configs():
+    return sorted(_named())

@@ -1,0 +1,357 @@
+"""On-device two-level graph construction, slab subset (torch).
+
+Counterpart of :mod:`pointgnn_tpu.graph.device_builder` for the
+production serving graph: deterministic voxel keypoint selection, then
+both slab levels (cell-sorted rows plus per-cell row offsets), so the
+``slab_edge_max`` kernel walks the exact uncapped radius graph with no
+edge list.  The integer metadata is bitwise equal to the JAX builder's:
+
+- every sort is stable (``torch.argsort(stable=True)``), as
+  ``jnp.argsort`` is;
+- ``jnp.nonzero(size=K, fill_value=P)`` becomes a cumsum compaction
+  with a static output size (no ``torch.nonzero`` and its host sync);
+- the ``mode="drop"`` scatter of ``_cell_offsets`` scatters the
+  non-first rows into one extra slot that is then cut off.
+"""
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from pointgnn_tpu_torch.graph.pad import PaddedGraph
+
+# static packing dims for voxel keys (same as the JAX builder)
+_DX, _DY, _DZ = 1024, 128, 1024
+
+
+class LevelSpec(NamedTuple):
+    radius: float
+    cell_cap: int        # edge-list path only (not ported)
+    per_center_cap: int  # edge-list path only (not ported)
+    grid_xz: int = 256
+    # slab grid: cell size decoupled from the radius; the kernel walks
+    # +/- slab_halo cell columns around each center block
+    slab_cell: float = 0.0
+    slab_grid: int = 0
+    slab_halo: int = 1
+
+
+class DeviceGraphSpec(NamedTuple):
+    """Static configuration of the two-level Point-GNN graph."""
+
+    num_points: int       # P: raw point capacity
+    num_keypoints: int    # K: downsampled vertex capacity
+    voxel_size: float     # level-0 downsampling voxel
+    level0: LevelSpec     # raw -> keypoints
+    level1: LevelSpec     # keypoints -> keypoints
+    slab_level1: bool = False
+    slab_level0: bool = False
+
+
+def spec_from_config(
+    config: dict,
+    num_points: int = 32768,
+    num_keypoints: int = 16384,
+    runtime: bool = True,
+    cell_caps: Tuple[int, int] = (96, 192),
+    per_center_caps: Tuple[int, int] = (32, 256),
+    world_extent: float = 130.0,
+) -> DeviceGraphSpec:
+    """Derive the spec from a reference-format model config (the same
+    derivation as the JAX ``spec_from_config``)."""
+    kwargs = config["runtime_graph_gen_kwargs" if runtime else
+                    "graph_gen_kwargs"]
+    levels = kwargs["level_configs"]
+    if len(levels) != 2:
+        raise ValueError("device builder supports the 2-level family")
+    scale0 = levels[0]["graph_scale"]
+    if not np.isclose(scale0, levels[1]["graph_scale"]):
+        raise ValueError("level 1 must share level-0 vertices")
+    voxel = kwargs["base_voxel_size"] * scale0
+
+    def level(i, cell_cap, per_center_cap):
+        r = float(levels[i]["graph_gen_kwargs"]["radius"])
+        grid = int(np.clip(int(np.ceil(world_extent / r)), 32, 512))
+        slab_cell = max(r, world_extent / 256.0)
+        slab_halo = int(np.ceil(r / slab_cell - 1e-9))
+        slab_grid = int(np.ceil(world_extent / slab_cell))
+        return LevelSpec(
+            r, cell_cap, per_center_cap, grid_xz=grid,
+            slab_cell=slab_cell, slab_grid=slab_grid, slab_halo=slab_halo,
+        )
+
+    return DeviceGraphSpec(
+        num_points=num_points,
+        num_keypoints=num_keypoints,
+        voxel_size=float(voxel),
+        level0=level(0, cell_caps[0], per_center_caps[0]),
+        level1=level(1, cell_caps[1], per_center_caps[1]),
+    )
+
+
+def _masked_min(xyz, mask):
+    inf = torch.full_like(xyz, float("inf"))
+    return torch.where(mask[:, None], xyz, inf).amin(dim=0)
+
+
+def _cell_keys(xyz, mask, cell_size, origin):
+    """Pack integer voxel coordinates into one int32 key; invalid
+    points get the maximal key so they sort to the end."""
+    ijk = torch.floor((xyz - origin) / cell_size).to(torch.int32)
+    hi = torch.tensor([_DX - 1, _DY - 1, _DZ - 1], dtype=torch.int32,
+                      device=xyz.device)
+    ijk = torch.minimum(torch.clamp(ijk, min=0), hi)
+    key = ijk[:, 0] + _DX * (ijk[:, 1] + _DY * ijk[:, 2])
+    big = _DX * _DY * _DZ
+    return torch.where(mask, key, torch.full_like(key, big))
+
+
+def _voxel_origin(xyz, mask):
+    """Voxel-grid origin: the masked point minimum (inference has no
+    random shift)."""
+    return _masked_min(xyz, mask)
+
+
+def _compact(flags, size, fill):
+    """Indices of the first ``size`` True entries of ``flags``, padded
+    with ``fill``: ``jnp.nonzero(flags, size=size, fill_value=fill)``
+    with a static output shape."""
+    n = flags.shape[0]
+    rank = torch.cumsum(flags.to(torch.int64), 0) - 1
+    dest = torch.where(flags & (rank < size), rank,
+                       torch.full_like(rank, size))
+    out = torch.full((size + 1,), fill, dtype=torch.int64,
+                     device=flags.device)
+    out.scatter_(0, dest, torch.arange(n, device=flags.device))
+    return out[:size]
+
+
+def voxel_select(xyz, mask, voxel_size, num_keypoints):
+    """One representative point index per occupied voxel (the
+    lowest-index point, grid anchored at the point-cloud minimum).
+
+    Returns ``(indices [K] int64 into xyz, kp_mask [K] bool)``; the first
+    ``num_keypoints`` voxels in key order are kept.
+    """
+    p = xyz.shape[0]
+    origin = _voxel_origin(xyz, mask)
+    keys = _cell_keys(xyz, mask, voxel_size, origin)
+    order = torch.argsort(keys, stable=True)
+    sorted_keys = keys[order]
+    big = _DX * _DY * _DZ
+    first = torch.ones(p, dtype=torch.bool, device=xyz.device)
+    first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    first = first & (sorted_keys < big)
+    slots = _compact(first, num_keypoints, p)
+    kp_mask = slots < p
+    indices = order[torch.clamp(slots, max=p - 1)]
+    return torch.where(kp_mask, indices, torch.zeros_like(indices)), kp_mask
+
+
+def slab_grid_of(level: LevelSpec):
+    """(cell_size, grid) of the level's slab grid."""
+    cell = level.slab_cell or level.radius
+    grid = level.slab_grid or level.grid_xz
+    return cell, grid
+
+
+def slab_kernel_wiring(level: LevelSpec) -> dict:
+    """The model-side slab kwargs for one level: the one derivation of
+    {grid_g, radius, halo}, so the kernel walks the grid the builder
+    wrote."""
+    return {
+        "grid_g": slab_grid_of(level)[1],
+        "radius": level.radius,
+        "halo": level.slab_halo,
+    }
+
+
+def grid_cells(xyz, mask, level: LevelSpec, origin=None):
+    """Slab-grid cell id per row (pad rows get ``g*g``).
+    Returns ``(cell [N] int32, origin [3])``."""
+    r, g = slab_grid_of(level)
+    if origin is None:
+        origin = _masked_min(xyz, mask)
+    cx = torch.clamp(
+        torch.floor((xyz[:, 0] - origin[0]) / r).to(torch.int32), 0, g - 1
+    )
+    cz = torch.clamp(
+        torch.floor((xyz[:, 2] - origin[2]) / r).to(torch.int32), 0, g - 1
+    )
+    cell = torch.where(mask, cx * g + cz, torch.full_like(cx, g * g))
+    return cell.to(torch.int32), origin
+
+
+def _cell_offsets(sorted_cell, num_cells):
+    """``searchsorted(sorted_cell, arange(num_cells + 1))`` as a scatter
+    of each cell's first row plus a reverse cummin that back-fills the
+    empty cells."""
+    n = sorted_cell.shape[0]
+    dev = sorted_cell.device
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sorted_cell[1:] != sorted_cell[:-1]
+    # non-first rows land in the extra slot num_cells + 2, cut off below
+    # (JAX scatters them out of bounds under mode="drop")
+    idx = torch.where(first, sorted_cell.to(torch.int64),
+                      torch.full((n,), num_cells + 2, dtype=torch.int64,
+                                 device=dev))
+    tbl = torch.full((num_cells + 3,), -1, dtype=torch.int32, device=dev)
+    tbl.scatter_(0, idx, torch.arange(n, dtype=torch.int32, device=dev))
+    tbl = tbl[: num_cells + 1]
+    filled = torch.where(tbl >= 0, tbl, torch.full_like(tbl, n))
+    return torch.cummin(filled.flip(0), dim=0).values.flip(0)
+
+
+def slab_metadata(kp_xyz, kp_mask, level: LevelSpec, secondary=None):
+    """Cell-sort order + per-cell row offsets for one slab level.
+
+    Returns ``(order [K], sorted_cell [K], offsets [g*g+1])``;
+    ``secondary`` (e.g. the level-0 fine cell) orders rows within each
+    cell."""
+    cell, _ = grid_cells(kp_xyz, kp_mask, level)
+    if secondary is None:
+        order = torch.argsort(cell, stable=True)
+    else:
+        o1 = torch.argsort(secondary, stable=True)
+        order = o1[torch.argsort(cell[o1], stable=True)]
+    sorted_cell = cell[order]
+    offsets = _cell_offsets(sorted_cell, slab_grid_of(level)[1] ** 2)
+    return order, sorted_cell, offsets
+
+
+def inverse_permutation(order):
+    n = order.shape[0]
+    inv = torch.zeros(n, dtype=torch.int64, device=order.device)
+    inv[order] = torch.arange(n, device=order.device)
+    return inv
+
+
+def build_padded_graph(
+    points_xyz,            # [P, 3] float32
+    features,              # [P, C] float32
+    points_mask,           # [P] bool/float
+    spec: DeviceGraphSpec,
+) -> PaddedGraph:
+    """Two-level slab graph (both ``slab_level0`` and ``slab_level1``).
+
+    Raw points are sorted into level-0 cell order; keypoints into
+    level-1 cell-major, level-0 cell-minor order.  Other flag
+    combinations are the edge-list paths, not ported yet."""
+    if not (spec.slab_level0 and spec.slab_level1):
+        raise NotImplementedError(
+            "only the two-level slab graph is ported "
+            "(spec.slab_level0 and spec.slab_level1 must be True)"
+        )
+    dev = points_xyz.device
+    points_mask = points_mask.to(torch.bool)
+    kp_idx, kp_mask = voxel_select(
+        points_xyz, points_mask, spec.voxel_size, spec.num_keypoints
+    )
+    kp_xyz = torch.where(
+        kp_mask[:, None], points_xyz[kp_idx], torch.zeros((), device=dev)
+    )
+    # level 0: sort raw points by their level-0 cell
+    p_cell, p_origin = grid_cells(points_xyz, points_mask, spec.level0)
+    p_order = torch.argsort(p_cell, stable=True)
+    points_xyz = points_xyz[p_order]
+    features = features[p_order]
+    points_mask = points_mask[p_order]
+    slab0_offsets = _cell_offsets(
+        p_cell[p_order], slab_grid_of(spec.level0)[1] ** 2
+    )
+    kp_idx = inverse_permutation(p_order)[kp_idx]
+    kp_fine, _ = grid_cells(kp_xyz, kp_mask, spec.level0, p_origin)
+    # level 1: keypoints in level-1 cell-major, level-0 cell-minor order
+    order, slab_center_cell, slab_offsets = slab_metadata(
+        kp_xyz, kp_mask, spec.level1, secondary=kp_fine
+    )
+    kp_idx = kp_idx[order]
+    kp_mask = kp_mask[order]
+    kp_xyz = kp_xyz[order]
+    slab0_center_cell = kp_fine[order]
+
+    k = spec.num_keypoints
+    maskf = points_mask.to(torch.float32)
+    kp_maskf = kp_mask.to(torch.float32)
+    dummy = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return PaddedGraph(
+        features=features * maskf[:, None],
+        vertex_xyz=(points_xyz * maskf[:, None], kp_xyz, kp_xyz),
+        vertex_mask=(maskf, kp_maskf, kp_maskf),
+        keypoint_indices=(
+            kp_idx.to(torch.int32),
+            torch.arange(k, dtype=torch.int32, device=dev),
+        ),
+        edges_src=(dummy, dummy),
+        edges_dst=(dummy, dummy),
+        cls_labels=torch.zeros((k,), dtype=torch.int32, device=dev),
+        encoded_boxes=torch.zeros((k, 7), dtype=torch.float32, device=dev),
+        valid_boxes=torch.zeros((k,), dtype=torch.float32, device=dev),
+        slab_offsets=slab_offsets,
+        slab_center_cell=slab_center_cell,
+        slab0_offsets=slab0_offsets,
+        slab0_center_cell=slab0_center_cell,
+    )
+
+
+def host_overflow_stats(xyz: np.ndarray, spec: DeviceGraphSpec):
+    """Host-side overflow accounting for one frame: points beyond
+    ``spec.num_points`` and occupied voxels beyond ``num_keypoints``
+    (the same packing as the device voxel keys)."""
+    n = len(xyz)
+    kept = np.asarray(xyz[: spec.num_points], np.float32)
+    if len(kept):
+        ijk = np.floor(
+            (kept - kept.min(axis=0)) / spec.voxel_size
+        ).astype(np.int64)
+        ijk = np.clip(ijk, 0, np.array([_DX - 1, _DY - 1, _DZ - 1]))
+        occupied = len(
+            np.unique(ijk[:, 0] + _DX * (ijk[:, 1] + _DY * ijk[:, 2]))
+        )
+    else:
+        occupied = 0
+    return {
+        "points": n,
+        "points_dropped": max(0, n - spec.num_points),
+        "voxels_occupied": occupied,
+        "keypoints_dropped": max(0, occupied - spec.num_keypoints),
+    }
+
+
+# Pad rows of the packed payload carry this coordinate; any coordinate
+# >= PACK_SENTINEL / 10 marks a pad row.
+PACK_SENTINEL = 1e6
+
+
+def pack_points(xyz: np.ndarray, attr: np.ndarray, num_points: int):
+    """Host-side: one [num_points, 3 + C] f32 payload; pad rows carry
+    sentinel coordinates.  Warns when points beyond the capacity are
+    dropped."""
+    if len(xyz) > num_points:
+        import warnings
+
+        warnings.warn(
+            "point overflow: frame has %d points > device capacity %d; "
+            "dropping %d (raise num_points in the DeviceGraphSpec)"
+            % (len(xyz), num_points, len(xyz) - num_points),
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    n = min(len(xyz), num_points)
+    out = np.zeros((num_points, 3 + attr.shape[1]), np.float32)
+    out[n:, :3] = PACK_SENTINEL
+    out[:n, :3] = xyz[:n]
+    out[:n, 3:] = attr[:n]
+    return out
+
+
+def unpack_points(packed):
+    """Device-side inverse of :func:`pack_points`:
+    ``(xyz [P,3], features [P,C], mask [P])`` with zeroed pad rows."""
+    mask = (packed[:, 0] < PACK_SENTINEL / 10).to(torch.float32)
+    xyz = torch.where(
+        mask[:, None] > 0, packed[:, :3], torch.zeros((), device=packed.device)
+    )
+    feats = packed[:, 3:] * mask[:, None]
+    return xyz, feats, mask

@@ -1,0 +1,313 @@
+"""Slab serving pipeline: points -> detections -> KITTI text.
+
+Counterpart of the on-device slab path of
+:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True,
+slab=True``).  Per frame the host packs the points into one array; the
+device unpacks it, builds the two-level slab graph, runs the network
+(whose edge work is ``slab_edge_max``), softmax, the hypothesis mask,
+top-k and the box decode; the host then folds the vertical classes and
+runs merge-NMS.  Stage times go into ``time_dict`` under the JAX
+pipeline's bucket names.
+"""
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pointgnn_tpu_torch.core import boxes as box_ops
+from pointgnn_tpu_torch.core.points import Points
+from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+from pointgnn_tpu_torch.graph import device_builder as db
+from pointgnn_tpu_torch.model import encodings
+from pointgnn_tpu_torch.model.pointgnn import get_model
+from pointgnn_tpu_torch.postprocess import iou as iou_lib
+from pointgnn_tpu_torch.postprocess import nms as nms_lib
+from pointgnn_tpu_torch.utils.device import resolve_device
+
+# class-id -> KITTI name, folding horizontal/vertical pairs
+ALL_CLASS_NAMES = {
+    "yaw": [
+        "Background", "Car", "Car", "Pedestrian", "Pedestrian",
+        "Cyclist", "Cyclist", "DontCare",
+    ],
+    "Car": ["Background", "Car", "Car", "DontCare"],
+    "Pedestrian_and_Cyclist": [
+        "Background", "Pedestrian", "Pedestrian", "Cyclist", "Cyclist",
+        "DontCare",
+    ],
+}
+
+IMG_CLIP_W = 1242.0
+IMG_CLIP_H = 375.0
+
+
+def select_input_features(attr: np.ndarray, mode: str) -> np.ndarray:
+    """Input-feature selection ('irgb'|'0rgb'|'0000'|'i000'|'rgb'|'i'|'0');
+    ``attr`` is [N, 4] = intensity+rgb (or [N, 1] for 'i'/'0')."""
+    if mode == "irgb":
+        return attr.astype(np.float32)
+    if mode == "rgb":
+        return attr[:, 1:4].astype(np.float32)
+    if mode == "0rgb":
+        return np.hstack(
+            [np.zeros((attr.shape[0], 1), np.float32), attr[:, 1:4]]
+        ).astype(np.float32)
+    if mode == "0000":
+        return np.zeros_like(attr[:, :4], dtype=np.float32)
+    if mode == "i000":
+        return np.hstack(
+            [attr[:, [0]], np.zeros((attr.shape[0], 3), np.float32)]
+        ).astype(np.float32)
+    if mode == "i":
+        return attr[:, [0]].astype(np.float32)
+    if mode == "0":
+        return np.zeros((attr.shape[0], 1), dtype=np.float32)
+    raise ValueError("unknown input_features mode: %s" % mode)
+
+
+def input_feature_dim(mode: str) -> int:
+    return {"irgb": 4, "rgb": 3, "0rgb": 4, "0000": 4, "i000": 4,
+            "i": 1, "0": 1}[mode]
+
+
+def occlusion_score(box: np.ndarray, xyz: np.ndarray) -> float:
+    """Projected-extent coverage product: how much of the box's three
+    axis extents the inlier points span."""
+    if xyz.shape[0] == 0:
+        return 0.0
+    normals, lower, upper = box_ops.boxes_to_normals(box[None, :])
+    normals, lower, upper = normals[0], lower[0], upper[0]
+    projected = xyz @ normals.T
+    spans = projected.max(axis=0) - projected.min(axis=0)
+    return float(np.prod(spans / (upper - lower)))
+
+
+def _cam_points_to_image(xyz: np.ndarray, calib: Dict) -> np.ndarray:
+    """Project camera points to pixels (homogeneous scale 1)."""
+    P = calib["cam_to_image"]
+    uvw = xyz @ P[:3, :3].T + P[:3, 3]
+    return uvw / uvw[:, [2]]
+
+
+def detections_to_kitti_labels(
+    label_method: str,
+    class_labels: np.ndarray,
+    boxes_3d: np.ndarray,
+    scores: np.ndarray,
+    calib: Dict,
+    aux: Dict,
+    use_box_score: bool = True,
+) -> List[Tuple]:
+    """Project NMS survivors to 2D, clip, truncation-filter and
+    occlusion-rescore; returns KITTI label tuples.  ``aux["hyp_xyz"]``
+    holds all masked hypothesis coordinates."""
+    names = ALL_CLASS_NAMES[label_method]
+    pred_labels: List[Tuple] = []
+    if len(class_labels) == 0:
+        return pred_labels
+    corners = nms_lib.boxes_3d_to_corners(boxes_3d)
+    for i in range(len(corners)):
+        xy = _cam_points_to_image(corners[i], calib)[:, :2]
+        xmin, ymin = np.amin(xy, axis=0)
+        xmax, ymax = np.amax(xy, axis=0)
+        clip_xmin, clip_ymin = max(xmin, 0.0), max(ymin, 0.0)
+        clip_xmax = min(xmax, IMG_CLIP_W)
+        clip_ymax = min(ymax, IMG_CLIP_H)
+        truncation_rate = 1.0 - (clip_ymax - clip_ymin) * (
+            clip_xmax - clip_xmin
+        ) / ((ymax - ymin) * (xmax - xmin))
+        if truncation_rate > 0.4:
+            continue
+        x3d, y3d, z3d, l, h, w, yaw = boxes_3d[i]
+        if not l > 0:
+            raise ValueError("box %d has non-positive length %r" % (i, l))
+        score = scores[i]
+        if use_box_score:
+            inside = box_ops.points_in_box(aux["hyp_xyz"], boxes_3d[i])
+            score = (
+                1.0 + occlusion_score(boxes_3d[i], aux["hyp_xyz"][inside])
+            ) * score
+        pred_labels.append(
+            (
+                names[int(class_labels[i])], -1, -1, 0,
+                clip_xmin, clip_ymin, clip_xmax, clip_ymax,
+                h, w, l, x3d, y3d, z3d, yaw, score,
+            )
+        )
+    return pred_labels
+
+
+def format_kitti_lines(pred_labels: List[Tuple]) -> str:
+    """KITTI label file text: every field ``str()``-ed with a trailing
+    space, a newline per label, one final blank line."""
+    return (
+        "".join(
+            " ".join(str(v) for v in pred) + " \n" for pred in pred_labels
+        )
+        + "\n"
+    )
+
+
+class InferencePipeline:
+    """Drives one config + parameter set over frames, on the slab
+    on-device graph path."""
+
+    def __init__(
+        self,
+        config: Dict,
+        params=None,
+        device_spec: Optional[db.DeviceGraphSpec] = None,
+        compute_dtype="bfloat16",
+        seed: int = 0,
+        device=None,
+        use_box_merge: bool = True,
+        use_box_score: bool = True,
+        max_hypotheses: int = 4096,
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        self.max_hypotheses = max_hypotheses
+        self.label_method = config["label_method"]
+        self.num_classes = config["num_classes"]
+        self.use_box_merge = use_box_merge
+        self.use_box_score = use_box_score
+        label_map, n_cls = LABEL_METHODS[self.label_method]
+        if n_cls != self.num_classes:
+            raise ValueError("config num_classes disagrees with its labels")
+        self.decode = encodings.get_decode(
+            config["box_encoding_method"], label_map
+        )
+        self.enc_len = encodings.get_encoding_len(
+            config["box_encoding_method"]
+        )
+        spec = device_spec or db.spec_from_config(config)
+        self.device_spec = spec._replace(slab_level1=True, slab_level0=True)
+        self.compute_dtype = compute_dtype
+        self.model = get_model(config["model_name"])(
+            num_classes=self.num_classes,
+            box_encoding_len=self.enc_len,
+            mode="test",
+            compute_dtype=compute_dtype,
+            slab_level1=db.slab_kernel_wiring(self.device_spec.level1),
+            slab_level0=db.slab_kernel_wiring(self.device_spec.level0),
+            **config["model_kwargs"],
+        )
+        self.input_features = config["input_features"]
+        if params is None:
+            params = self.model.init(
+                seed, input_feature_dim(self.input_features), self.device
+            )
+        self.params = params
+        self.time_dict: Dict[str, float] = {}
+        self.overflow_counters: Dict[str, int] = {}
+        self.frames_done = 0
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def device_fn(self, params, packed):
+        """Fused: unpack -> graph build -> GNN -> softmax -> hypothesis
+        mask -> top-k -> box decode.  Returns ``(scores, classes,
+        boxes, xyz)`` of the top ``max_hypotheses`` hypotheses; masked
+        ones carry score -1."""
+        model, num_classes = self.model, self.num_classes
+        points_xyz, features, mask = db.unpack_points(packed)
+        graph = db.build_padded_graph(
+            points_xyz, features, mask, self.device_spec
+        )
+        logits, box_enc = model.apply(params, graph)
+        probs = model.postprocess(logits)
+        out_level = model.output_graph_level
+        kp_xyz = graph.vertex_xyz[out_level]
+        kp_mask = graph.vertex_mask[out_level]
+        k = probs.shape[0]
+        flat_probs = probs.reshape(-1)
+        cls_ids = torch.arange(
+            num_classes, dtype=torch.int32, device=probs.device
+        ).repeat(k)
+        valid = kp_mask.to(torch.bool).repeat_interleave(num_classes)
+        fg = (cls_ids > 0) & (cls_ids < num_classes - 1)
+        score = torch.where(
+            valid & fg & (flat_probs > 1.0 / num_classes),
+            flat_probs,
+            torch.full((), -1.0, device=probs.device),
+        )
+        topv, topi = torch.topk(score, min(self.max_hypotheses, score.numel()))
+        sel_cls = cls_ids[topi]
+        sel_xyz = kp_xyz[topi // num_classes]
+        sel_enc = box_enc.reshape(-1, model.box_encoding_len)[topi]
+        decoded = self.decode(sel_cls, sel_xyz, sel_enc)
+        return topv, sel_cls, decoded, sel_xyz
+
+    # ------------------------------------------------------------------
+    def _account_overflow(self, points: Points):
+        """Accumulate host-computable capacity-overflow stats and warn
+        on keypoint drop."""
+        stats = db.host_overflow_stats(points.xyz, self.device_spec)
+        for key, val in stats.items():
+            self.overflow_counters[key] = (
+                self.overflow_counters.get(key, 0) + int(val)
+            )
+        if stats["keypoints_dropped"] > 0:
+            import warnings
+
+            warnings.warn(
+                "keypoint overflow: %d occupied voxels > capacity %d;"
+                " %d keypoints dropped (raise num_keypoints in the "
+                "DeviceGraphSpec)"
+                % (stats["voxels_occupied"], self.device_spec.num_keypoints,
+                   stats["keypoints_dropped"]),
+                RuntimeWarning,
+                stacklevel=3,
+            )
+
+    def _add_time(self, bucket, seconds):
+        self.time_dict[bucket] = self.time_dict.get(bucket, 0) + seconds
+
+    def run_frame(
+        self, points: Points
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Dict]:
+        """One frame: returns ``(class_labels, boxes_3d, scores, aux)``;
+        ``aux`` carries the masked hypothesis coordinates and scores."""
+        t0 = time.time()
+        self._account_overflow(points)
+        packed = db.pack_points(
+            points.xyz,
+            select_input_features(points.attr, self.input_features),
+            self.device_spec.num_points,
+        )
+        packed = torch.from_numpy(packed).to(self.device)
+        t1 = time.time()
+        self._add_time("gen graph", t1 - t0)
+        outs = self.device_fn(self.params, packed)
+        scores, sel_cls, sel_boxes, sel_xyz = (t.cpu().numpy() for t in outs)
+        t2 = time.time()
+        self._add_time("gnn inference", t2 - t1)
+        result = self._finish_frame(scores, sel_cls, sel_boxes, sel_xyz)
+        self._add_time("nms", time.time() - t2)
+        return result
+
+    def _finish_frame(self, scores, sel_cls, sel_boxes, sel_xyz):
+        """Host tail: threshold, class fold, merge-NMS."""
+        self.frames_done += 1
+        keep = scores > 0
+        sel_labels = sel_cls[keep].astype(np.int64)
+        sel_probs = scores[keep].astype(np.float64)
+        sel_boxes = sel_boxes[keep]
+        aux = {"hyp_xyz": sel_xyz[keep], "probs_ori": sel_probs}
+        if sel_labels.size == 0:
+            return np.zeros(0, np.int64), np.zeros((0, 7)), np.zeros(0), aux
+        for v in range(2, self.num_classes - 1, 2):
+            sel_labels[sel_labels == v] = v - 1
+        nms_fn = nms_lib.get_nms_fn(self.use_box_merge, self.use_box_score)
+        class_labels, boxes_3d, out_scores, _ = nms_fn(
+            sel_labels,
+            sel_boxes.astype(np.float64),
+            sel_probs,
+            overlapped_fn=iou_lib.overlapped_boxes_3d,
+            overlapped_thres=self.config["nms_overlapped_thres"],
+            appr_factor=100.0,
+            top_k=-1,
+        )
+        return class_labels, boxes_3d, out_scores, aux

@@ -1,0 +1,221 @@
+"""Graph layers in slab mode (counterpart of :mod:`pointgnn_tpu.nn.layers`).
+
+- :class:`PointSetPooling` slab branch: raw points -> keypoint features
+  through ``slab_edge_max`` at level 0, then the output MLP.
+- :class:`GraphNetAutoCenter`: auto-offset MLP, the A/B fold of the
+  first edge-MLP layer, ``slab_edge_max`` at level 1, the update MLP and
+  the residual.
+- :class:`ClassAwarePredictor`: shared class head + per-class box heads.
+
+The fold: ``concat(feat_j, x_j - x_k) @ W0 + b0 == A[j] - B[k]`` with
+``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernel
+only gathers rows of A.  The edge-list paths are not ported: a layer
+called without slab metadata raises.
+"""
+
+from typing import Optional
+
+import torch
+
+from pointgnn_tpu_torch.nn import mlp, slab as slab_ops
+
+
+def _check_slab(slab, agg, norm, act):
+    if slab is None:
+        raise NotImplementedError(
+            "only the slab path is ported: the layer needs slab metadata"
+        )
+    if not (agg == "max" and norm == "NONE" and act == "ReLU"):
+        raise ValueError(
+            "slab mode requires max aggregation, NONE normalization and "
+            "ReLU activation; got agg=%r norm=%r act=%r" % (agg, norm, act)
+        )
+
+
+def _xyz4(xyz, mask, sentinel):
+    """[N, 4] float32 coordinates with pad rows set to ``sentinel``."""
+    pad = torch.zeros((xyz.shape[0], 1), dtype=torch.float32,
+                      device=xyz.device)
+    xyz4 = torch.cat([xyz.to(torch.float32), pad], dim=1)
+    return torch.where(mask[:, None], xyz4,
+                       torch.full((), sentinel, device=xyz.device))
+
+
+def _folded_tables(first, features, src_xyz, ctr_xyz, compute_dtype):
+    """A = feat @ W0a + x @ W0b + b0 and B = x_ctr @ W0b, rounded through
+    the compute dtype and kept float32."""
+    w0, b0 = first["w"], first["b"]
+    c = features.shape[1]
+    w0b = w0[c:]
+    table_a = features @ w0[:c] + src_xyz.to(w0.dtype) @ w0b + b0
+    table_b = ctr_xyz.to(w0.dtype) @ w0b
+    return (
+        mlp.round_to(table_a, compute_dtype).contiguous(),
+        mlp.round_to(table_b, compute_dtype).contiguous(),
+    )
+
+
+def _slab_agg(tail, table_a, src4, table_b, ctr4, slab, compute_dtype):
+    cd = mlp.as_compute_dtype(compute_dtype) or torch.float32
+    weights = [(layer["w"], layer["b"]) for layer in tail]
+    return slab_ops.slab_edge_max(
+        table_a, src4, table_b, ctr4,
+        slab["offsets"], slab["center_cell"], weights,
+        grid_g=slab["grid_g"], radius=slab["radius"],
+        halo=slab.get("halo", 1),
+        compute_dtype=str(cd).replace("torch.", ""),
+    )
+
+
+class PointSetPooling:
+    """Downsampling layer: raw points -> keypoint set features."""
+
+    def __init__(self, aggregation: str = "max"):
+        self._agg_name = aggregation
+
+    def apply(
+        self,
+        params,
+        point_features,     # [P, C]
+        point_xyz,          # [P, 3]
+        center_xyz,         # [K, 3]
+        center_mask=None,   # [K]
+        point_mask=None,    # [P]
+        point_MLP_normalization_type="NONE",
+        point_MLP_activation_type="ReLU",
+        output_MLP_normalization_type="NONE",
+        output_MLP_activation_type="ReLU",
+        compute_dtype=None,
+        slab=None,
+        **_unused,
+    ):
+        _check_slab(slab, self._agg_name, point_MLP_normalization_type,
+                    point_MLP_activation_type)
+        num_src, num_centers = point_xyz.shape[0], center_xyz.shape[0]
+        dev = point_xyz.device
+        pp = params["point_mlp"]
+        table_a, table_b = _folded_tables(
+            pp[0], point_features, point_xyz, center_xyz, compute_dtype
+        )
+        p_mask = (point_mask.to(torch.bool) if point_mask is not None
+                  else torch.ones(num_src, dtype=torch.bool, device=dev))
+        c_mask = (center_mask.to(torch.bool) if center_mask is not None
+                  else torch.ones(num_centers, dtype=torch.bool,
+                                  device=dev))
+        agg = _slab_agg(
+            pp[1:], table_a, _xyz4(point_xyz, p_mask, 1e6),
+            table_b, _xyz4(center_xyz, c_mask, -1e6), slab, compute_dtype,
+        ).to(point_features.dtype)
+        out = mlp.apply_mlp(
+            params["output_mlp"], agg, is_logits=False,
+            normalization_type=output_MLP_normalization_type,
+            activation_type=output_MLP_activation_type,
+            compute_dtype=compute_dtype,
+        )
+        if center_mask is not None:
+            out = out * center_mask[:, None].to(out.dtype)
+        return out
+
+
+class GraphNetAutoCenter:
+    """GNN layer with auto-registration and residual update."""
+
+    def __init__(self, aggregation: str = "max"):
+        self._agg_name = aggregation
+
+    def apply(
+        self,
+        params,
+        vertex_features,    # [N, C]
+        vertex_xyz,         # [N, 3]
+        vertex_mask=None,   # [N]
+        edge_MLP_normalization_type="NONE",
+        edge_MLP_activation_type="ReLU",
+        update_MLP_normalization_type="NONE",
+        update_MLP_activation_type="ReLU",
+        auto_offset=False,
+        auto_offset_MLP_normalization_type="NONE",
+        auto_offset_MLP_feature_activation_type="ReLU",
+        compute_dtype=None,
+        slab=None,
+        **_unused,
+    ):
+        _check_slab(slab, self._agg_name, edge_MLP_normalization_type,
+                    edge_MLP_activation_type)
+        n = vertex_features.shape[0]
+        # auto-registration offsets shift only the center coordinates
+        if auto_offset:
+            offset = mlp.apply_mlp(
+                params["auto_offset_mlp"], vertex_features, is_logits=True,
+                normalization_type=auto_offset_MLP_normalization_type,
+                activation_type=auto_offset_MLP_feature_activation_type,
+                compute_dtype=compute_dtype,
+            )
+            shifted_xyz = vertex_xyz + offset.to(vertex_xyz.dtype)
+        else:
+            shifted_xyz = vertex_xyz
+        ep = params["edge_mlp"]
+        table_a, table_b = _folded_tables(
+            ep[0], vertex_features, vertex_xyz, shifted_xyz, compute_dtype
+        )
+        maskb = (vertex_mask.to(torch.bool) if vertex_mask is not None
+                 else torch.ones(n, dtype=torch.bool,
+                                 device=vertex_xyz.device))
+        # the distance test uses the unshifted coordinates on both sides
+        agg = _slab_agg(
+            ep[1:], table_a, _xyz4(vertex_xyz, maskb, 1e6),
+            table_b, _xyz4(vertex_xyz, maskb, -1e6), slab, compute_dtype,
+        ).to(vertex_features.dtype)
+        update = mlp.apply_mlp(
+            params["update_mlp"], agg, is_logits=True,
+            normalization_type=update_MLP_normalization_type,
+            activation_type=update_MLP_activation_type,
+            compute_dtype=compute_dtype,
+        )
+        out = update + vertex_features
+        if vertex_mask is not None:
+            out = out * vertex_mask[:, None].to(out.dtype)
+        return out
+
+
+class ClassAwarePredictor:
+    """Shared cls head + per-class loc heads."""
+
+    def __init__(self, cls_Ks=(64,), loc_Ks=(64, 64)):
+        self.cls_Ks = tuple(cls_Ks)
+        self.loc_Ks = tuple(loc_Ks)
+
+    def apply(
+        self,
+        params,
+        features,           # [N, C]
+        num_classes: int,
+        normalization_type="NONE",
+        activation_type="ReLU",
+        compute_dtype=None,
+        **_unused,
+    ):
+        """Returns ``(logits [N, C], box_encodings [N, C, L])``."""
+        logits = mlp.apply_fc(
+            params["cls"], features, is_logits=True,
+            normalization_type=normalization_type,
+            activation_type=activation_type, compute_dtype=compute_dtype,
+        )
+        boxes = [
+            mlp.apply_fc(
+                params["loc"][ci], features, is_logits=True,
+                normalization_type=normalization_type,
+                activation_type=activation_type,
+                compute_dtype=compute_dtype,
+            )
+            for ci in range(num_classes)
+        ]
+        return logits, torch.stack(boxes, dim=1)
+
+
+def predictor_widths(predictor_type: str) -> Optional[dict]:
+    """Hidden widths of the predictor types the reference registers."""
+    return {
+        "classaware_predictor": dict(cls_Ks=(64,), loc_Ks=(64, 64)),
+        "classaware_predictor_128": dict(cls_Ks=(128,), loc_Ks=(128, 128)),
+    }.get(predictor_type)

@@ -1,0 +1,67 @@
+"""The port imports with JAX blocked and pulls in nothing of
+``pointgnn_tpu``; ``chip_smoke.py`` imports neither."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pointgnn_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            pointgnn_tpu_torch.__path__, "pointgnn_tpu_torch."
+        )
+    )
+
+
+def test_port_imports_without_jax():
+    mods = _port_modules()
+    assert "pointgnn_tpu_torch.nn.slab" in mods
+    assert "pointgnn_tpu_torch.infer" in mods
+    code = textwrap.dedent(
+        """
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        for name in %r:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "pointgnn_tpu" or m.startswith("pointgnn_tpu."))
+        assert not bad, bad
+        assert sys.modules.get("jax") is None
+        print("ok", len(%r))
+        """ % (mods, mods)
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax():
+    names = _imported_names(os.path.join(REPO, "chip_smoke.py"))
+    assert any(n.startswith("pointgnn_tpu_torch") for n in names)
+    for n in names:
+        root = n.split(".")[0]
+        assert root not in ("jax", "jaxlib", "pointgnn_tpu"), n
