@@ -5,9 +5,10 @@
 
 Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
 
-1. prints the card's name and power limit and builds the CUDA kernel
-   (``pointgnn_tpu_torch/csrc/slab_edge_max.cu``, nvcc, sm_90a);
-2. holds ``slab_edge_max`` against its plain PyTorch version on the
+1. prints the card's name and power limit and builds the CUDA kernels
+   (``pointgnn_tpu_torch/csrc/slab_edge_max.cu`` and
+   ``slab_edge_max_bwd.cu``, one nvcc each, started together, sm_90a);
+2. holds ``slab_edge_max`` (K1) against its plain PyTorch version on the
    level-0 and level-1 slab metadata of a full-size car_auto_T3 frame
    (24576 points, 12288 keypoints) in bf16, and times both; also checks
    the f32 kernel at a small size;
@@ -16,7 +17,23 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
    count reset just before and read just after: 4 launches per frame;
 4. compares the model on the card with the same model on the CPU (the
    plain kernel version) on a small frame, in f32;
-5. prints one ``{"kernels": [...]}`` line and, last, the
+5. holds ``slab_edge_max_backward`` (K2) against its plain version at
+   the full training shapes of a randomized car_auto_T3 training graph
+   (32768 points, 12288 keypoints), f32, runs it twice to show bitwise
+   reproducible gradients, and times K1 and K2 in f32 beside their
+   plain versions;
+6. trains car_auto_T3 at full width and depth through ``make_train_step``
+   (sgd, lr 0.125, batch 4 on one card, per-step graph randomization,
+   random weights from seed 0): one warm-up step, then 3 timed steps
+   with the launch counts reset just before and read just after (16 K1
+   and 16 K2 launches per step), then one step split into K1, K2 and
+   the rest with CUDA events;
+7. compares one union step's loss and every parameter gradient on the
+   card (the kernels) with the CPU (the plain versions) at a reduced
+   capacity with the same injected graph randomization, and also with
+   the card running the plain slab versions, to tell the kernels' share
+   of the gap from the rest of the card's f32 path;
+8. prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -36,11 +53,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (no TF32)
 PEAK_BYTES = 3.35e12
 
 NUM_POINTS, NUM_KEYPOINTS = 24576, 12288
 FRAMES = 8
 BF16_TOL = 2e-2  # |kernel - plain| <= tol * (1 + |plain|)
+TRAIN_STEPS = 3
+# K2 vs plain, per gradient tensor: |kernel - plain| <= tol * (1 + max
+# |plain|).  f32 sums of the same products in other orders (the plain
+# dW is a cuBLAS product over all pairs, the kernel sums per CTA and
+# then over CTAs); winners agree when K1 and the plain forward agree.
+BWD_TOL = 1e-4
+# one train step's gradients, card vs CPU: f32 through the whole model
+# and loss, every sum in another order on each device
+GRAD_TOL = 1e-3
 
 
 def check(cond, msg):
@@ -115,23 +142,41 @@ def slab_call_inputs(graph, level, spec, widths, seed, device):
     )
 
 
-def bound(args, pairs, peak_flops):
+def bound(args, pairs, peak_flops, winners=None):
     """Least time (ms) for one call: the larger of its unique bytes over
-    the memory rate and its chain operations on the in-radius pairs
-    over the peak rate."""
+    the memory rate and the operations this run's data needs over the
+    peak rate.  The forward runs the chain on every in-radius pair.
+    The backward (``winners``: the winner entries and winning pairs of
+    ``slab.winner_counts``) recomputes the chain on every pair; only the
+    winner entries carry a cotangent, so the last layer's dW, db and dy
+    count on them alone, and the layers below (and the first
+    activation's cotangent into both tables) on the winning pairs.  It
+    also reads ``out`` and ``g`` and writes both table gradients and the
+    weight gradients."""
     h = args["table_a"].shape[1]
+    weights = args["weights"]
     flops = 2 * h  # relu(a - b)
     n_bytes = 0
-    for w, b in args["weights"]:
+    for w, b in weights:
         flops += 2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
-        n_bytes += 4 * (w.numel() + b.numel())
+        n_bytes += 4 * (w.numel() + b.numel()) * (1 if winners is None
+                                                  else 2)
     flops *= pairs
-    h_out = args["weights"][-1][0].shape[1]
+    if winners is not None:
+        entries, won_pairs = winners
+        flops += entries * (4 * weights[-1][0].shape[0] + 1)
+        lower = 2 * h  # d(relu(a - b)) into the A and B rows
+        for w, _ in weights[:-1]:
+            lower += 4 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
+        flops += won_pairs * lower
+    h_out = weights[-1][0].shape[1]
     k = args["table_b"].shape[0]
     for name in ("table_a", "src_xyz", "table_b", "ctr_xyz", "offsets",
                  "center_cell"):
         n_bytes += args[name].numel() * args[name].element_size()
-    n_bytes += 4 * k * h_out
+    n_bytes += 4 * k * h_out * (1 if winners is None else 2)
+    if winners is not None:
+        n_bytes += 4 * (args["table_a"].numel() + args["table_b"].numel())
     t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), (
         "operations" if t_ops >= t_bytes else "bytes"
@@ -329,6 +374,451 @@ def cpu_parity_phase(report, device):
           "equal, probs %.3g enc %.3g (tol 1e-3)" % (dp, de), flush=True)
 
 
+def _flat_grads(res):
+    return [res[0], res[1]] + [t for wb in res[2] for t in wb]
+
+
+def _train_setup(device, spec=None):
+    """car_auto_T3 training as a Trainer resolves it on one card: the
+    model in train mode with slab wiring, its graph builder, the loss
+    config and the train config."""
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.model import encodings
+    from pointgnn_tpu_torch.model.losses import loss_config
+    from pointgnn_tpu_torch.model.pointgnn import PointGNN
+    from pointgnn_tpu_torch.train import device_pipeline as dpipe
+
+    cfg = configs.get_config("car_auto_T3_train")
+    tcfg = configs.get_train_config("car_auto_T3_train")
+    dspec, extra = dpipe.resolve_device_setup(cfg, spec)
+    model = PointGNN(
+        num_classes=cfg["num_classes"],
+        box_encoding_len=encodings.get_encoding_len(
+            cfg["box_encoding_method"]),
+        mode="train", **extra, **cfg["model_kwargs"],
+    )
+    builder = dpipe.make_graph_builder(dspec, model.output_graph_level, cfg)
+    return cfg, tcfg, dspec, model, builder, loss_config(cfg)
+
+
+def _train_frames(cfg, dspec, seeds, device, lower_labels=False,
+                  **frame_kw):
+    """Synthetic frames with their labels, packed as DeviceFrames and
+    stacked on the device.  The synthetic boxes sit above the points
+    the generator carves for each car, so no point falls inside them;
+    ``lower_labels`` sets each box on the ground (camera y = 1.74, the
+    sensor 1.73 m up) so that its carved points, and the keypoints among
+    them, get a localization target."""
+    import warnings
+
+    from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.graph import device_labels as dl
+    from pointgnn_tpu_torch.infer import select_input_features
+    from pointgnn_tpu_torch.train import device_pipeline as dpipe
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    label_map, num_classes = LABEL_METHODS[cfg["label_method"]]
+    frames = []
+    for seed in seeds:
+        pts, labels = synthetic_lidar_frame(seed=seed, **frame_kw)
+        if lower_labels:
+            labels = [dict(lb, y3d=1.74) for lb in labels]
+        feats = select_input_features(pts.attr, cfg["input_features"])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            packed = db.pack_points(pts.xyz, feats, dspec.num_points)
+        frames.append(dpipe.DeviceFrame(
+            packed, dl.pack_frame_labels(labels, label_map, num_classes)))
+    return dpipe.frames_to_device(dpipe.stack_frames(frames), device)
+
+
+def backward_kernel_phase(report, device):
+    """Phase 5: K2 vs its plain version (and K1 in f32) at the full
+    training shapes of one randomized car_auto_T3 training graph."""
+    import torch
+
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.parallel.step import graph_generator
+
+    cfg, _, dspec, _, _, _ = _train_setup(device)
+    batch = _train_frames(cfg, dspec, [100], device, points_per_beam=380)
+    graph = db.build_padded_graph(
+        *db.unpack_points(batch.packed_points[0]), dspec,
+        rnd=db.draw_randomization(dspec.num_points,
+                                  graph_generator(0, 0, 0, device)),
+    )
+    levels = {}
+    for level, widths in ((0, [32, 64, 128, 300]), (1, [300, 300])):
+        args = slab_call_inputs(graph, level, dspec, widths, 30 + level,
+                                device)
+        kw = dict(args, compute_dtype="float32")
+        out = slab.slab_edge_max(**kw)
+        gen = torch.Generator(device=device).manual_seed(40 + level)
+        g = torch.randn(out.shape, generator=gen, device=device)
+        got = slab.slab_edge_max_backward(**kw, out=out, g=g)
+        again = slab.slab_edge_max_backward(**kw, out=out, g=g)
+        torch.cuda.synchronize()
+        ref_out = slab.slab_edge_max_reference(**kw)
+        ref = slab.slab_edge_max_backward_reference(**kw, out=ref_out, g=g)
+        fwd_err = (out - ref_out).abs().max().item()
+        check(fwd_err <= 1e-4 * (1 + ref_out.abs().max().item()),
+              "L%d: f32 K1 vs plain %.3g" % (level, fwd_err))
+        names = ["d_table_a", "d_table_b"] + [
+            "d_%s%d" % (kind, i) for i in range(len(widths) - 1)
+            for kind in ("w", "b")
+        ]
+        errs = {}
+        for name, x, y, z in zip(names, _flat_grads(got),
+                                 _flat_grads(again), _flat_grads(ref)):
+            check(x.shape == z.shape, "L%d %s shape" % (level, name))
+            check(bool(torch.isfinite(x).all()),
+                  "L%d %s non-finite" % (level, name))
+            check(torch.equal(x, y),
+                  "L%d %s differs between two runs" % (level, name))
+            err = (x - z).abs().max().item()
+            scale = z.abs().max().item()
+            check(err <= BWD_TOL * (1 + scale),
+                  "L%d %s: K2 vs plain %.3g > %.3g * (1 + %.3g)"
+                  % (level, name, err, BWD_TOL, scale))
+            errs[name] = dict(max_abs_err=err, max_abs_plain=scale)
+        pairs = slab.inradius_pair_count(
+            args["src_xyz"], args["ctr_xyz"], args["offsets"],
+            args["center_cell"], args["grid_g"], args["radius"],
+            args["halo"],
+        )
+        ms = time_ms(lambda: slab.slab_edge_max_backward(**kw, out=out,
+                                                         g=g),
+                     runs=5, warmup=1)
+        plain_ms = time_ms(
+            lambda: slab.slab_edge_max_backward_reference(
+                **kw, out=ref_out, g=g),
+            runs=3, warmup=1)
+        fwd_ms = time_ms(lambda: slab.slab_edge_max(**kw), runs=5, warmup=1)
+        fwd_plain_ms = time_ms(lambda: slab.slab_edge_max_reference(**kw),
+                               runs=3, warmup=1)
+        winners = slab.winner_counts(**kw, out=ref_out)
+        bound_ms, bound_by, flops, n_bytes = bound(args, pairs,
+                                                   PEAK_F32_FLOPS, winners)
+        fwd_bound_ms, fwd_bound_by, _, _ = bound(args, pairs,
+                                                 PEAK_F32_FLOPS)
+        max_err = max(e["max_abs_err"] for e in errs.values())
+        levels["L%d" % level] = dict(
+            P=args["table_a"].shape[0], K=args["table_b"].shape[0],
+            widths=widths, inradius_pairs=pairs, winner_entries=winners[0],
+            winning_pairs=winners[1], grads=errs,
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+            bytes=n_bytes, fwd_f32=dict(
+                ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound_ms,
+                bound_by=fwd_bound_by, max_abs_err=fwd_err),
+        )
+        print("phase 5: L%d P=%d K=%d pairs=%d (winner entries %d, "
+              "winning pairs %d) K2 max_abs_err=%.3g "
+              "(tol %.3g * (1 + max|plain|)), bitwise equal over two runs; "
+              "K2 %.3f ms plain %.3f ms bound %.4f ms (%s); K1 f32 %.3f ms "
+              "plain %.3f ms bound %.4f ms"
+              % (level, args["table_a"].shape[0], args["table_b"].shape[0],
+                 pairs, winners[0], winners[1], max_err, BWD_TOL, ms,
+                 plain_ms, bound_ms, bound_by,
+                 fwd_ms, fwd_plain_ms, fwd_bound_ms), flush=True)
+        for name, e in errs.items():
+            print("  %s: max_abs_err %.3g max|plain| %.3g"
+                  % (name, e["max_abs_err"], e["max_abs_plain"]))
+    report["train_levels"] = levels
+
+
+def _split_step(step, state, batch):
+    """One train step with every K1 and K2 call bracketed by CUDA
+    events: ``(state, aux, wall ms, K1 ms, K2 ms)``."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import slab
+
+    orig = {"K1": slab.slab_edge_max, "K2": slab.slab_edge_max_backward}
+    events = {"K1": [], "K2": []}
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = orig[name](*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return res
+
+        wrapper.launches = 0  # the wrapped function counts on its name
+        return wrapper
+
+    slab.slab_edge_max = timed("K1")
+    slab.slab_edge_max_backward = timed("K2")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        slab.slab_edge_max = orig["K1"]
+        slab.slab_edge_max_backward = orig["K2"]
+    split = {k: sum(s.elapsed_time(e) for s, e in v)
+             for k, v in events.items()}
+    return state, aux, wall, split["K1"], split["K2"], {
+        k: len(v) for k, v in events.items()}
+
+
+def train_phase(report, device):
+    """Phase 6: full-width car_auto_T3 training steps at batch 4."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch.infer import input_feature_dim
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.parallel import step as step_lib
+    from pointgnn_tpu_torch.train import metrics as metrics_lib
+    from pointgnn_tpu_torch.train import optimizers
+
+    cfg, tcfg, dspec, model, builder, loss_cfg = _train_setup(device)
+    frames_per_device = tcfg["batch_size"]  # one card: the whole batch
+    params = model.init(seed=0,
+                        input_dim=input_feature_dim(cfg["input_features"]),
+                        device=device)
+    leaves = optimizers.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt, lr = optimizers.build_from_train_config(tcfg)
+    state = step_lib.init_train_state(params, opt)
+    step = step_lib.make_train_step(
+        model, opt, loss_cfg, builder, frames_per_device,
+        with_metrics=True, graph_rng_seed=0,
+    )
+    batch = _train_frames(cfg, dspec, range(frames_per_device), device,
+                          points_per_beam=380)
+    initial = [t.detach().clone() for t in leaves]
+    torch.cuda.reset_peak_memory_stats()
+    state, aux = step(state, batch)  # warm-up (allocator, kernel loads)
+    torch.cuda.synchronize()
+
+    metrics = metrics_lib.StreamingMetrics(model.num_classes)
+    slab.slab_edge_max.launches = 0
+    slab.slab_edge_max_backward.launches = 0
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append({k: float(aux[k]) for k in (
+            "cls_loss", "loc_loss", "reg_loss", "total_loss")})
+        metrics.update(aux)
+    k1 = slab.slab_edge_max.launches
+    k2 = slab.slab_edge_max_backward.launches
+    per_step = 4 * frames_per_device  # (1 level-0 + 3 level-1) per frame
+    check(k1 == per_step * TRAIN_STEPS,
+          "K1 launched %d times over %d steps, want %d"
+          % (k1, TRAIN_STEPS, per_step * TRAIN_STEPS))
+    check(k2 == per_step * TRAIN_STEPS,
+          "K2 launched %d times over %d steps, want %d"
+          % (k2, TRAIN_STEPS, per_step * TRAIN_STEPS))
+    for d in losses:
+        check(all(np.isfinite(v) for v in d.values()),
+              "non-finite loss %s" % d)
+    # every tensor with a gradient moved (the heads of classes without a
+    # localization target get none into their biases)
+    changed = [not torch.equal(t.detach(), b)
+               for t, b in zip(leaves, initial)]
+    with_grad = [t.grad is not None and bool((t.grad != 0).any())
+                 for t in leaves]
+    moved = sum(changed)
+    check(all(c or not g for c, g in zip(changed, with_grad))
+          and moved >= sum(with_grad) > 0,
+          "%d of %d parameter tensors changed, %d had gradients"
+          % (moved, len(leaves), sum(with_grad)))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, aux, split_wall, k1_ms, k2_ms, split_calls = _split_step(
+        step, state, batch)
+    res = metrics.results()
+    report["train"] = dict(
+        batch=frames_per_device, steps=TRAIN_STEPS, step_ms=step_ms,
+        median_step_ms=statistics.median(step_ms), losses=losses,
+        launches=dict(K1=k1, K2=k2), lr=lr(0), peak_mem_gib=peak_gib,
+        num_endpoint=float(aux["num_endpoint"]),
+        num_valid_endpoint=float(aux["num_valid_endpoint"]),
+        split=dict(wall_ms=split_wall, K1_ms=k1_ms, K2_ms=k2_ms,
+                   rest_ms=split_wall - k1_ms - k2_ms, calls=split_calls),
+        recall_1=res["recall_1"], precision_0=res["precision_0"],
+    )
+    print("phase 6: car_auto_T3 train, batch %d, %d steps: %s ms/step "
+          "(median %.1f), losses %s, launches K1 %d K2 %d (%d/step each), "
+          "%d/%d parameter tensors changed (all with gradients), peak "
+          "%.2f GiB; split step "
+          "%.1f ms = K1 %.1f + K2 %.1f + rest %.1f"
+          % (frames_per_device, TRAIN_STEPS,
+             [round(v, 1) for v in step_ms], statistics.median(step_ms),
+             [round(d["total_loss"], 5) for d in losses], k1, k2, per_step,
+             moved, len(leaves), peak_gib, split_wall, k1_ms, k2_ms,
+             split_wall - k1_ms - k2_ms), flush=True)
+    return k1, k2
+
+
+def _leaf_paths(tree, prefix=""):
+    """Path names of a parameter tree's tensors, in ``param_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, "%s/%s" % (prefix, k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, "%s/%d" % (prefix, i))]
+    return [] if tree is None else [prefix]
+
+
+def _compare_runs(a, b, paths):
+    """Loss and gradient gaps of run ``a`` against run ``b``."""
+    import numpy as np
+
+    loss_err = max(abs(x - y) / max(abs(y), 1e-12)
+                   for x, y in zip(a["losses"], b["losses"]))
+    gaps = []
+    for x, y in zip(a["grads"], b["grads"]):
+        gaps.append(float(np.abs(x - y).max())
+                    / (1 + float(np.abs(y).max())))
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    return dict(loss_rel_err=loss_err, worst_grad_err_scaled=gaps[worst],
+                worst_leaf=paths[worst], grad_err_scaled=gaps)
+
+
+def grad_parity_phase(report, device):
+    """Phase 7: one union step's loss and gradients, card vs CPU, full
+    width, reduced capacity, same injected randomization.
+
+    Three runs: the card with the kernels (the gated one), the card with
+    the plain slab versions in their place, and the CPU (the plain
+    versions).  Comparing the three says whether the card-vs-CPU gap
+    comes from the kernels or from the rest of the card's f32 path.  In
+    the kernel run every K2 call is also held against the plain
+    backward on the same inputs and the model's own cotangent."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+    from pointgnn_tpu_torch.parallel import step as step_lib
+    from pointgnn_tpu_torch.train import optimizers
+
+    cfg, _, _, _, _, _ = _train_setup(device)
+    spec = db.spec_from_config(cfg, num_points=4096, num_keypoints=2048,
+                               runtime=False)
+    frames = 2
+    gen = torch.Generator().manual_seed(1)
+    draws = [db.draw_randomization(spec.num_points, gen)
+             for _ in range(frames)]
+    orig = (slab.slab_edge_max, slab.slab_edge_max_backward)
+    call_gaps = []
+
+    def checked_backward(*args, **opts):
+        # called as the autograd Function calls it: (tables, coordinates,
+        # metadata, weights, out, g) positionally, options by keyword.
+        # The plain forward's own output gives the plain winners.
+        res = orig[1](*args, **opts)
+        fwd_args, out, g = args[:7], args[7], args[8]
+        ref_out = slab.slab_edge_max_reference(*fwd_args, **opts)
+        ref = slab.slab_edge_max_backward_reference(*fwd_args, ref_out, g,
+                                                    **opts)
+        gaps = [float((x - z).abs().max()) / (1 + float(z.abs().max()))
+                for x, z in zip(_flat_grads(res), _flat_grads(ref))]
+        call_gaps.append(dict(
+            K=int(out.shape[0]), h_out=int(out.shape[1]),
+            fwd_max_abs_err=float((out - ref_out).abs().max()),
+            fwd_entries_differ=int((out != ref_out).sum()),
+            grad_err_scaled=max(gaps)))
+        return res
+
+    checked_backward.launches = 0  # the wrapped function counts on its name
+    runs = {}
+    params_np = None
+    for name, dev in (("card", device), ("card_plain", device),
+                      ("cpu", torch.device("cpu"))):
+        _, _, dspec, model, builder, loss_cfg = _train_setup(dev, spec)
+        if params_np is None:
+            params_np = params_to_numpy(model.init(seed=2, device="cpu"))
+        params = params_from_jax(params_np, dev)
+        leaves = optimizers.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        sums = step_lib.make_union_sums_fn(model, loss_cfg, builder, frames)
+        batch = _train_frames(cfg, dspec, range(20, 20 + frames), dev,
+                              lower_labels=True, n_beams=32,
+                              points_per_beam=120)
+        dev_draws = [tuple(x.to(dev) for x in d) for d in draws]
+        if name == "card":
+            slab.slab_edge_max_backward = checked_backward
+        elif name == "card_plain":
+            slab.slab_edge_max = slab.slab_edge_max_reference
+            slab.slab_edge_max_backward = slab.slab_edge_max_backward_reference
+        try:
+            acc, reg = sums(params, batch, dev_draws)
+            cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+            loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+            total = cls + loc + reg
+            total.backward()
+        finally:
+            slab.slab_edge_max, slab.slab_edge_max_backward = orig
+        runs[name] = dict(
+            losses=[float(x.detach()) for x in (total, cls, loc, reg)],
+            n_val=float(acc["n_val"]),
+            grads=[t.grad.detach().cpu().numpy() if t.grad is not None
+                   else np.zeros(tuple(t.shape), np.float32)
+                   for t in leaves],
+        )
+        paths = _leaf_paths(params)
+    check(runs["card"]["n_val"] == runs["card_plain"]["n_val"]
+          == runs["cpu"]["n_val"] > 0,
+          "localization targets differ: %s"
+          % {k: r["n_val"] for k, r in runs.items()})
+    check(len(call_gaps) == 4 * frames,
+          "%d K2 calls in the kernel run, want %d"
+          % (len(call_gaps), 4 * frames))
+    gated = _compare_runs(runs["card"], runs["cpu"], paths)
+    check(gated["loss_rel_err"] <= 1e-4, "losses card vs CPU: rel %.3g > 1e-4"
+          % gated["loss_rel_err"])
+    for path, gap in zip(paths, gated["grad_err_scaled"]):
+        check(gap <= GRAD_TOL, "gradient %s: card vs CPU %.3g of (1 + max|g|)"
+              " > %.3g" % (path, gap, GRAD_TOL))
+    split = {
+        "card_plain_vs_cpu": _compare_runs(runs["card_plain"], runs["cpu"],
+                                           paths),
+        "card_vs_card_plain": _compare_runs(runs["card"],
+                                            runs["card_plain"], paths),
+    }
+    worst_call = max(c["grad_err_scaled"] for c in call_gaps)
+    report["grad_parity"] = dict(
+        num_points=spec.num_points, num_keypoints=spec.num_keypoints,
+        frames=frames, leaves=len(paths), n_val=runs["card"]["n_val"],
+        losses={k: r["losses"] for k, r in runs.items()},
+        card_vs_cpu=gated, k2_calls=call_gaps, **split,
+    )
+    print("phase 7: card vs CPU union step (%d frames, %d points, %d "
+          "keypoints, full width, %d keypoints with a box target): "
+          "losses rel err %.3g (tol 1e-4), worst gradient err %.3g of "
+          "(1 + max|g|) over %d leaves at %s (tol %.3g)"
+          % (frames, spec.num_points, spec.num_keypoints,
+             runs["card"]["n_val"], gated["loss_rel_err"],
+             gated["worst_grad_err_scaled"], len(paths), gated["worst_leaf"],
+             GRAD_TOL), flush=True)
+    for key, c in split.items():
+        print("  %s: losses rel err %.3g, worst gradient err %.3g at %s"
+              % (key, c["loss_rel_err"], c["worst_grad_err_scaled"],
+                 c["worst_leaf"]))
+    print("  K2 vs plain on the model's own %d calls: worst %.3g of "
+          "(1 + max|plain|); K1 vs plain forward entries that differ %s"
+          % (len(call_gaps), worst_call,
+             [c["fwd_entries_differ"] for c in call_gaps]), flush=True)
+
+
 def main():
     import torch
 
@@ -350,44 +840,77 @@ def main():
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    path, build_s, log = slab.build_kernel()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    report["build"] = dict(seconds=build_s, ptxas=ptxas, cached=not log)
-    print("phase 1: %s %s in %.1f s" % (
-        "found cached" if not log else "built", os.path.basename(path),
-        build_s))
-    for ln in ptxas:
-        print("  " + ln)
+    built = slab.build_kernels()
+    report["build"] = {}
+    for name, (path, build_s, log) in built.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        report["build"][name] = dict(seconds=build_s, ptxas=ptxas,
+                                     cached=not log)
+        print("phase 1: %s %s in %.1f s" % (
+            "found cached" if not log else "built", os.path.basename(path),
+            build_s))
+        for ln in ptxas:
+            print("  " + ln)
 
     kernel_phase(report, device)
-    launches = serving_phase(report, device)
+    serving_launches = serving_phase(report, device)
     cpu_parity_phase(report, device)
+    backward_kernel_phase(report, device)
+    train_k1, train_k2 = train_phase(report, device)
+    grad_parity_phase(report, device)
 
-    lv = report["levels"]
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
-    per_frame = lambda key: lv["L0"][key] + n_l1 * lv["L1"][key]  # noqa: E731
-    # the frame's bound is the sum of its launches' bounds; name the
-    # limit of the level that contributes most of it
-    share = {"L0": lv["L0"]["bound_ms"], "L1": n_l1 * lv["L1"]["bound_ms"]}
+
+    def per_frame(lv, key):
+        return lv["L0"][key] + n_l1 * lv["L1"][key]
+
+    def bound_by(lv):
+        # a frame's bound is the sum of its launches' bounds; name the
+        # limit of the level that contributes most of it
+        share = {"L0": lv["L0"]["bound_ms"],
+                 "L1": n_l1 * lv["L1"]["bound_ms"]}
+        return lv[max(share, key=share.get)]["bound_by"]
+
+    keys = ("inradius_pairs", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    lv, tl = report["levels"], report["train_levels"]
     kernels = [{
         "name": "slab_edge_max",
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:573",
-        "launches": launches,
+        # serving (8 frames) and training (3 steps), each counted from 0
+        "launches": serving_launches + train_k1,
+        "launches_by_path": {"serving": serving_launches,
+                             "training": train_k1},
         "max_abs_err": max(lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]),
-        "ms": per_frame("ms"),
-        "plain_ms": per_frame("plain_ms"),
-        "bound_ms": per_frame("bound_ms"),
-        "bound_by": lv[max(share, key=share.get)]["bound_by"],
+        # per serving frame (bf16): 1 level-0 + 3 level-1 launches
+        "ms": per_frame(lv, "ms"),
+        "plain_ms": per_frame(lv, "plain_ms"),
+        "bound_ms": per_frame(lv, "bound_ms"),
+        "bound_by": bound_by(lv),
         "library_ms": None,
-        "per_launch": {
-            key: {k: lv[key][k] for k in (
-                "inradius_pairs", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")}
-            for key in ("L0", "L1")
-        },
+        "per_launch": {key: {k: lv[key][k] for k in keys}
+                       for key in ("L0", "L1")},
+        "per_launch_train_f32": {
+            key: dict(tl[key]["fwd_f32"], inradius_pairs=tl[key][
+                "inradius_pairs"]) for key in ("L0", "L1")},
+    }, {
+        "name": "slab_edge_max_backward",
+        "route": "cuda",
+        "source": "pointgnn_tpu_torch/csrc/slab_edge_max_bwd.cu",
+        "replaces": "pointgnn_tpu/nn/pallas_kernels.py:1230",
+        "launches": train_k2,
+        "max_abs_err": max(tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]),
+        # per training frame (f32): 1 level-0 + 3 level-1 launches
+        "ms": per_frame(tl, "ms"),
+        "plain_ms": per_frame(tl, "plain_ms"),
+        "bound_ms": per_frame(tl, "bound_ms"),
+        "bound_by": bound_by(tl),
+        "library_ms": None,
+        "per_launch": {key: {k: tl[key][k] for k in keys}
+                       for key in ("L0", "L1")},
     }]
     report["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -1,12 +1,17 @@
-"""Built-in model configurations (the port's own copy).
+"""Built-in model and training configurations (the port's own copy).
 
 Counterpart of :mod:`pointgnn_tpu.configs` (``model_config``,
-``layer_configs``, ``get_config``, ``list_configs``): the same
+``layer_configs``, ``get_config``, ``train_config``,
+``get_train_config``, ``tpu_settings``, ``list_configs``): the same
 reference-schema dicts, so a config is interchangeable between the two
-packages.  The TPU capacity settings are not carried over.
+packages.  ``tpu_settings`` keeps its name: it holds the family's static
+graph capacities and the training compute dtype, which the port uses on
+the GPU as they are.
 """
 
 from typing import Dict, List
+
+from pointgnn_tpu_torch.graph.pad import GraphCapacity
 
 _MLP_WIDTH = 300
 
@@ -144,6 +149,65 @@ def model_config(
     }
 
 
+def train_config(
+    label_method: str = "Car",
+    train_dir: str = "./checkpoints/car_auto_T3_train",
+    dataset_split: str = "train_car.txt",
+) -> Dict:
+    """Run hyperparameters ("train_config" schema) of the shipped car
+    schedule: sgd, lr 0.125 with a staircase decay of 0.1 every 400K
+    steps, batch 4."""
+    max_steps = 1400000 if label_method == "Car" else 1000000
+    return {
+        "train_dataset": dataset_split,
+        "train_dir": train_dir,
+        "batch_size": 4,
+        "NUM_GPU": 2,  # interpreted as data-parallel device count
+        "unify_copies": True,
+        "optimizer": "sgd",
+        "optimizer_kwargs": {},
+        "initial_lr": 0.125,
+        "decay_step": 400000,
+        "decay_factor": 0.1,
+        "is_staircase": True,
+        "max_epoch": 1718,
+        "max_steps": max_steps,
+        "save_every_epoch": 20,
+        "NUM_TEST_SAMPLE": -1,
+        "load_dataset_to_mem": True,
+        "load_dataset_every_N_time": 0,
+        "num_load_dataset_workers": 16,
+        "capacity": 1,
+        "visualization": False,
+        "data_aug_configs": [
+            {
+                "method_name": "random_rotation_all",
+                "method_kwargs": {
+                    "method_name": "normal",
+                    "yaw_std": 0.39269908169872414,
+                    "expend_factor": [1.0, 1.0, 1.0],
+                },
+            },
+            {
+                "method_name": "random_flip_all",
+                "method_kwargs": {"flip_prob": 0.5},
+            },
+            {
+                "method_name": "random_box_shift",
+                "method_kwargs": {
+                    "method_name": "normal",
+                    "xyz_std": [3, 0, 3],
+                    "expend_factor": [1.1, 1.1, 1.1],
+                    "max_overlap_num_allowed": 100,
+                    "max_overlap_rate": 0.01,
+                    "appr_factor": 10,
+                    "max_trails": 100,
+                },
+            },
+        ],
+    }
+
+
 def _named():
     return {
         "car_auto_T0_train": ("Car", 0, True),
@@ -161,5 +225,41 @@ def get_config(name: str) -> Dict:
     return model_config(label, T, auto)
 
 
+def get_train_config(name: str) -> Dict:
+    label, _, _ = _named()[name]
+    split = "train_car.txt" if "train" in name else "trainval_car.txt"
+    if label != "Car":
+        split = "trainval_ped_cyl.txt"
+    return train_config(label, "./checkpoints/%s" % name, split)
+
+
 def list_configs():
     return sorted(_named())
+
+
+def tpu_settings(name_or_label: str = "Car") -> Dict:
+    """Static capacities and device-batch settings per config family."""
+    label = name_or_label
+    if name_or_label in _named():
+        label = _named()[name_or_label][0]
+    if label == "Pedestrian_and_Cyclist":
+        cap = GraphCapacity(
+            vertices=(32768, 16384, 16384), edges=(262144, 1048576)
+        )
+        runtime_cap = GraphCapacity(
+            vertices=(49152, 24576, 24576), edges=(524288, 2097152)
+        )
+    else:
+        cap = GraphCapacity(
+            vertices=(32768, 12288, 12288), edges=(262144, 2097152)
+        )
+        runtime_cap = GraphCapacity(
+            vertices=(49152, 20480, 20480), edges=(524288, 3145728)
+        )
+    return {
+        "frame_capacity": cap,
+        "runtime_capacity": runtime_cap,
+        "frames_per_device": 2,
+        # device-graph training compute precision; None = f32
+        "compute_dtype": None,
+    }

@@ -1,6 +1,7 @@
 """7-DoF 3D box geometry in KITTI camera coordinates (numpy).
 
-Copy of the parts of :mod:`pointgnn_tpu.core.boxes` that serving needs.
+Copy of the parts of :mod:`pointgnn_tpu.core.boxes` that serving and
+label packing need.
 A box is ``(x, y, z, l, h, w, yaw)``: center of the bottom face at
 ``(x, y, z)`` (camera frame: x right, y down, z forward), length ``l``
 along the heading axis, height ``h``, width ``w``, ``yaw`` about y.
@@ -8,7 +9,7 @@ The matmul forms (not einsum) keep the results bitwise equal to the
 JAX package's host code.
 """
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -103,3 +104,28 @@ def points_in_boxes(
 def points_in_box(xyz, box, expand=(1.0, 1.0, 1.0)) -> np.ndarray:
     """[N_points] mask for one box."""
     return points_in_boxes(xyz, np.asarray(box)[None, :], expand)[0]
+
+
+def label_to_box(label: Dict) -> np.ndarray:
+    """KITTI label dict -> [7] box array (x, y, z, l, h, w, yaw)."""
+    return np.array(
+        [
+            label["x3d"],
+            label["y3d"],
+            label["z3d"],
+            label["length"],
+            label["height"],
+            label["width"],
+            label["yaw"],
+        ],
+        dtype=np.float64,
+    )
+
+
+def normalize_yaw(yaw: float) -> float:
+    """Fold yaw into [-pi/4, 3*pi/4) as the label assigners do."""
+    while yaw < -0.25 * np.pi:
+        yaw += np.pi
+    while yaw > 0.75 * np.pi:
+        yaw -= np.pi
+    return yaw

@@ -41,30 +41,22 @@
 // Rounding points follow the JAX kernel: weights, biases and tables
 // are rounded to bf16 by the wrapper; relu(a - b) and every hidden
 // layer's output are rounded to bf16 here; products accumulate in f32.
-// With bf16 == 0 nothing is rounded (full f32, no TF32).
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// With bf16 == 0 nothing is rounded (full f32, no TF32).  The distance
+// test and the chain arithmetic come from slab_chain.cuh, which the
+// backward kernel (slab_edge_max_bwd.cu) shares, so its recompute equals
+// this forward bit for bit.
 
 #include <cstddef>
 
+#include "slab_chain.cuh"
+
 namespace {
 
-constexpr int kMaxLayers = 8;
+using namespace slab;
+
 constexpr int kThreads = 256;
 constexpr int kPairBatch = 32;
 constexpr int kTileRows = 32;
-constexpr float kNeg = -1e30f;
-
-struct Chain {
-  int n_layers;
-  int w_off[kMaxLayers];
-  int b_off[kMaxLayers];
-  int din[kMaxLayers];
-  int dout[kMaxLayers];
-};
-
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory layout, in floats; every section starts 16-byte aligned.
 struct Layout {
@@ -79,15 +71,6 @@ struct Layout {
     total = pairs + 2 * (kPairBatch + bk * kTileRows);
   }
 };
-
-template <bool kBf16>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
 
 // Runs the chain on pairs [p0, p0 + np) of the list and max-accumulates
 // the last layer into s_acc.  Ends with all threads synchronised.
@@ -105,8 +88,8 @@ __device__ void run_batch(const float* __restrict__ table_a,
     if (p < np) {
       const int k = s_pk[p0 + p];
       const int j = s_pj[p0 + p];
-      const float a = rnd<kBf16>(table_a[(size_t)j * h + i]);
-      v = fmaxf(rnd<kBf16>(a - s_b[k * h + i]), 0.f);
+      v = first_act<kBf16>(rnd<kBf16>(table_a[(size_t)j * h + i]),
+                           s_b[k * h + i]);
     }
     s_x0[p * width + i] = v;
   }
@@ -132,43 +115,19 @@ __device__ void run_batch(const float* __restrict__ table_a,
     const bool last = (l + 1 == chain.n_layers);
     for (int o = tid; o < dout; o += kThreads) {
       float acc[kPairBatch];
-#pragma unroll
-      for (int p = 0; p < kPairBatch; ++p) acc[p] = 0.f;
-      int i = 0;
-      for (; i + 4 <= din; i += 4) {
-        const float w0 = __ldg(&w[(size_t)(i + 0) * dout + o]);
-        const float w1 = __ldg(&w[(size_t)(i + 1) * dout + o]);
-        const float w2 = __ldg(&w[(size_t)(i + 2) * dout + o]);
-        const float w3 = __ldg(&w[(size_t)(i + 3) * dout + o]);
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(&xin[p * width + i]);
-          acc[p] = fmaf(xv.x, w0, acc[p]);
-          acc[p] = fmaf(xv.y, w1, acc[p]);
-          acc[p] = fmaf(xv.z, w2, acc[p]);
-          acc[p] = fmaf(xv.w, w3, acc[p]);
-        }
-      }
-      for (; i < din; ++i) {
-        const float wi = __ldg(&w[(size_t)i * dout + o]);
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) {
-          acc[p] = fmaf(xin[p * width + i], wi, acc[p]);
-        }
-      }
+      dense_column<kPairBatch>(xin, width, w, din, dout, o, acc);
       const float bo = __ldg(&bias[o]);
       if (!last) {
 #pragma unroll
         for (int p = 0; p < kPairBatch; ++p) {
-          xout[p * width + o] = rnd<kBf16>(fmaxf(acc[p] + bo, 0.f));
+          xout[p * width + o] = hidden_out<kBf16>(acc[p], bo);
         }
       } else {
 #pragma unroll
         for (int p = 0; p < kPairBatch; ++p) {
           if (p < np) {
             float* dst = &s_acc[s_pk[p0 + p] * h_out + o];
-            *dst = fmaxf(*dst, fmaxf(acc[p] + bo, 0.f));
+            *dst = fmaxf(*dst, last_out(acc[p], bo));
           }
         }
       }
@@ -230,12 +189,7 @@ __global__ void __launch_bounds__(kThreads)
         const int jj = idx - k * kTileRows;
         if (k < nk && jj < nrows) {
           const int j = r0 + jj;
-          const float dx = __fsub_rn(src_xyz[(size_t)j * 4 + 0], s_ctr[k * 4 + 0]);
-          const float dy = __fsub_rn(src_xyz[(size_t)j * 4 + 1], s_ctr[k * 4 + 1]);
-          const float dz = __fsub_rn(src_xyz[(size_t)j * 4 + 2], s_ctr[k * 4 + 2]);
-          const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                     __fmul_rn(dz, dz));
-          if (d2 <= r2) {
+          if (in_radius(&src_xyz[(size_t)j * 4], &s_ctr[k * 4], r2)) {
             const int slot = atomicAdd(&s_n, 1);
             s_pk[slot] = k;
             s_pj[slot] = j;

@@ -1,7 +1,8 @@
 """On-device two-level graph construction, slab subset (torch).
 
 Counterpart of :mod:`pointgnn_tpu.graph.device_builder` for the
-production serving graph: deterministic voxel keypoint selection, then
+production serving and training graphs: voxel keypoint selection
+(deterministic for serving, randomized per step for training), then
 both slab levels (cell-sorted rows plus per-cell row offsets), so the
 ``slab_edge_max`` kernel walks the exact uncapped radius graph with no
 edge list.  The integer metadata is bitwise equal to the JAX builder's:
@@ -107,10 +108,24 @@ def _cell_keys(xyz, mask, cell_size, origin):
     return torch.where(mask, key, torch.full_like(key, big))
 
 
-def _voxel_origin(xyz, mask):
-    """Voxel-grid origin: the masked point minimum (inference has no
-    random shift)."""
-    return _masked_min(xyz, mask)
+def draw_randomization(num_points, generator):
+    """The training draws of :func:`voxel_select` from ``generator``, on
+    its device: ``(shift [3] uniform in [0, 1), perm [num_points])``, a
+    sub-voxel shift of the grid origin and a permutation of the
+    points."""
+    dev = generator.device
+    shift = torch.rand(3, generator=generator, device=dev)
+    perm = torch.randperm(num_points, generator=generator, device=dev)
+    return shift, perm
+
+
+def _voxel_origin(xyz, mask, voxel_size, shift=None):
+    """Voxel-grid origin: the masked point minimum, moved back by
+    ``shift * voxel_size`` when a training shift is given."""
+    origin = _masked_min(xyz, mask)
+    if shift is not None:
+        origin = origin - shift.to(origin.dtype) * voxel_size
+    return origin
 
 
 def _compact(flags, size, fill):
@@ -127,17 +142,29 @@ def _compact(flags, size, fill):
     return out[:size]
 
 
-def voxel_select(xyz, mask, voxel_size, num_keypoints):
-    """One representative point index per occupied voxel (the
-    lowest-index point, grid anchored at the point-cloud minimum).
+def voxel_select(xyz, mask, voxel_size, num_keypoints, rnd=None):
+    """One representative point index per occupied voxel.
+
+    Without ``rnd`` (serving): the lowest-index point, grid anchored at
+    the point-cloud minimum.  With ``rnd`` (training), the draws
+    ``(shift [3], perm [P])`` of :func:`draw_randomization` (or the same
+    draws made elsewhere, as the tests inject JAX's): the origin moves
+    back by ``shift * voxel_size`` and the representative is the first
+    point of its voxel in permuted order, i.e. a uniformly random one (a
+    stable sort of the permuted keys).
 
     Returns ``(indices [K] int64 into xyz, kp_mask [K] bool)``; the first
     ``num_keypoints`` voxels in key order are kept.
     """
     p = xyz.shape[0]
-    origin = _voxel_origin(xyz, mask)
+    shift, perm = rnd if rnd is not None else (None, None)
+    origin = _voxel_origin(xyz, mask, voxel_size, shift)
     keys = _cell_keys(xyz, mask, voxel_size, origin)
-    order = torch.argsort(keys, stable=True)
+    if perm is None:
+        order = torch.argsort(keys, stable=True)
+    else:
+        perm = perm.to(device=xyz.device, dtype=torch.int64)
+        order = perm[torch.argsort(keys[perm], stable=True)]
     sorted_keys = keys[order]
     big = _DX * _DY * _DZ
     first = torch.ones(p, dtype=torch.bool, device=xyz.device)
@@ -232,12 +259,14 @@ def build_padded_graph(
     features,              # [P, C] float32
     points_mask,           # [P] bool/float
     spec: DeviceGraphSpec,
+    rnd=None,
 ) -> PaddedGraph:
     """Two-level slab graph (both ``slab_level0`` and ``slab_level1``).
 
     Raw points are sorted into level-0 cell order; keypoints into
-    level-1 cell-major, level-0 cell-minor order.  Other flag
-    combinations are the edge-list paths, not ported yet."""
+    level-1 cell-major, level-0 cell-minor order.  ``rnd`` randomizes
+    the keypoint selection for training (see :func:`voxel_select`).
+    Other flag combinations are the edge-list paths, not ported yet."""
     if not (spec.slab_level0 and spec.slab_level1):
         raise NotImplementedError(
             "only the two-level slab graph is ported "
@@ -246,7 +275,7 @@ def build_padded_graph(
     dev = points_xyz.device
     points_mask = points_mask.to(torch.bool)
     kp_idx, kp_mask = voxel_select(
-        points_xyz, points_mask, spec.voxel_size, spec.num_keypoints
+        points_xyz, points_mask, spec.voxel_size, spec.num_keypoints, rnd
     )
     kp_xyz = torch.where(
         kp_mask[:, None], points_xyz[kp_idx], torch.zeros((), device=dev)

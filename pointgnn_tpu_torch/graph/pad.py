@@ -1,10 +1,17 @@
 """Static-shape graph container (counterpart of
 :class:`pointgnn_tpu.graph.pad.PaddedGraph`, with torch tensor fields of
-the same names)."""
+the same names) and the per-level capacities of a config family."""
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+
+class GraphCapacity(NamedTuple):
+    """Static capacities: vertices per level and edges per level."""
+
+    vertices: Tuple[int, ...]
+    edges: Tuple[int, ...]
 
 
 class PaddedGraph(NamedTuple):

@@ -1,9 +1,11 @@
-"""Box decoding on the device (counterpart of the class-aware part of
-:mod:`pointgnn_tpu.model.encodings`).
+"""Box encoding and decoding on the device (counterpart of the
+class-aware part of :mod:`pointgnn_tpu.model.encodings` and of
+``classaware_encode_jax`` in :mod:`pointgnn_tpu.graph.device_labels`).
 
 Class-aware encodings are driven by per-class-id tables ``(sizes [C,3],
-yaw_offset [C], active [C])``, so decoding is a gather.  Only
-``classaware_all_class_box_encoding`` (every shipped config) is ported.
+yaw_offset [C], active [C])``, so encoding and decoding are gathers.
+Only ``classaware_all_class_box_encoding`` (every shipped config) is
+ported.
 """
 
 import functools
@@ -71,20 +73,37 @@ def get_encoding_len(name):
 def classaware_decode(cls_ids, points_xyz, encoded, tables):
     """Decode [N, 7] encoded boxes (one class column selected) given
     [N] class ids and [N, 3] vertex coordinates; float32 throughout."""
-    sizes, yaw_offset, active = tables
-    dev = encoded.device
-    sizes = torch.as_tensor(sizes, dtype=torch.float32, device=dev)
-    yaw_offset = torch.as_tensor(yaw_offset, dtype=torch.float32,
-                                 device=dev)
-    active = torch.as_tensor(active, device=dev)
-    ids = torch.clamp(cls_ids.to(torch.int64), 0, sizes.shape[0] - 1)
-    sz, yoff, act = sizes[ids], yaw_offset[ids], active[ids]
+    sz, yoff, act = _class_lookup(cls_ids, tables, encoded.device)
     xyz = torch.where(act[:, None], encoded[:, 0:3] * sz, encoded[:, 0:3])
     xyz = xyz + points_xyz
     lhw = torch.where(
         act[:, None], torch.exp(encoded[:, 3:6]) * sz, encoded[:, 3:6]
     )
     yaw = torch.where(act, encoded[:, 6] * QUARTER_PI + yoff, encoded[:, 6])
+    return torch.cat([xyz, lhw, yaw[:, None]], dim=-1)
+
+
+def _class_lookup(cls_ids, tables, device):
+    sizes, yaw_offset, active = tables
+    sizes = torch.as_tensor(sizes, dtype=torch.float32, device=device)
+    yaw_offset = torch.as_tensor(yaw_offset, dtype=torch.float32,
+                                 device=device)
+    active = torch.as_tensor(active, device=device)
+    ids = torch.clamp(cls_ids.to(torch.int64), 0, sizes.shape[0] - 1)
+    return sizes[ids], yaw_offset[ids], active[ids]
+
+
+def classaware_encode(cls_ids, points_xyz, boxes, tables):
+    """Encode [N, 7] target boxes against [N, 3] vertex coordinates for
+    [N] class ids (the inverse of :func:`classaware_decode`)."""
+    sz, yoff, act = _class_lookup(cls_ids, tables, boxes.device)
+    off = boxes[:, 0:3] - points_xyz
+    xyz = torch.where(act[:, None], off / sz, off)
+    lhw = torch.where(
+        act[:, None], torch.log(torch.clamp(boxes[:, 3:6], min=1e-12) / sz),
+        boxes[:, 3:6],
+    )
+    yaw = torch.where(act, (boxes[:, 6] - yoff) / QUARTER_PI, boxes[:, 6])
     return torch.cat([xyz, lhw, yaw[:, None]], dim=-1)
 
 

@@ -1,5 +1,8 @@
-"""Config-driven Point-GNN model in test mode (counterpart of
-:class:`pointgnn_tpu.model.pointgnn.PointGNN`).
+"""Config-driven Point-GNN model (counterpart of
+:class:`pointgnn_tpu.model.pointgnn.PointGNN`): serving (``mode="test"``)
+and training (``mode="train"``: the slab layers become differentiable
+through ``slab_edge_max_train``, and :meth:`PointGNN.loss` gives the
+loss dict).
 
 The parameter tree has the JAX package's keys
 (``params[scope]["edge_mlp"][i]["w"]`` ...), so :func:`~pointgnn_tpu_torch.
@@ -12,6 +15,8 @@ import numpy as np
 import torch
 
 from pointgnn_tpu_torch.graph.pad import PaddedGraph
+from pointgnn_tpu_torch.model import losses as L
+from pointgnn_tpu_torch.nn import mlp
 from pointgnn_tpu_torch.nn.layers import (
     ClassAwarePredictor,
     GraphNetAutoCenter,
@@ -58,10 +63,23 @@ class PointGNN:
         regularizer_type: Optional[str] = None,
         regularizer_kwargs: Optional[dict] = None,
     ):
-        # the regularizer only enters the training loss (not ported)
-        del regularizer_type, regularizer_kwargs
-        if mode != "test":
-            raise NotImplementedError("only test mode (serving) is ported")
+        if mode not in ("train", "test"):
+            raise NotImplementedError("mode %r is not ported" % mode)
+        if regularizer_type is None:
+            if regularizer_kwargs:
+                raise ValueError("regularizer kwargs without a regularizer")
+            self._reg_fn = None
+        else:
+            self._reg_fn = mlp.REGULARIZERS[regularizer_type](
+                **(regularizer_kwargs or {})
+            )
+        # train mode: the slab layers call the differentiable kernel (no
+        # remat: its backward recomputes the walk from the layer inputs)
+        if mode == "train":
+            if slab_level1 is not None:
+                slab_level1 = dict(slab_level1, train=True)
+            if slab_level0 is not None:
+                slab_level0 = dict(slab_level0, train=True)
         self.num_classes = num_classes
         self.box_encoding_len = box_encoding_len
         self.layer_configs = list(layer_configs)
@@ -180,6 +198,70 @@ class PointGNN:
 
     def postprocess(self, logits):
         return torch.softmax(logits, dim=-1)
+
+    def reg_loss(self, params):
+        """The weight regularization of the config (0 without one)."""
+        if self._reg_fn is None:
+            _, leaf = next(mlp.named_leaves(params))
+            return torch.zeros((), device=leaf.device)
+        return mlp.regularization_loss(params, self._reg_fn)
+
+    def loss(
+        self,
+        logits,            # [K, C]
+        labels,            # [K] int32
+        pred_box,          # [K, C, L]
+        gt_box,            # [K, L]
+        valid_box,         # [K]
+        endpoint_mask,     # [K]
+        cls_loss_type="focal_sigmoid",
+        cls_loss_kwargs=None,
+        loc_loss_type="huber_loss",
+        loc_loss_kwargs=None,
+        loc_loss_weight=1.0,
+        cls_loss_weight=1.0,
+    ):
+        """One frame's terms of the JAX model's loss dict: ``cls_loss``,
+        ``loc_loss``, ``classwise_loc_loss``, ``num_endpoint``,
+        ``num_valid_endpoint``.  ``reg_loss`` depends on the parameters
+        only, so the step takes it once from :meth:`reg_loss`.  Per-mode
+        settings (dicts keyed by mode) are resolved for this model's
+        mode."""
+        mode = self.mode
+
+        def _select(v):
+            return v[mode] if isinstance(v, dict) else v
+
+        loc_loss_weight = _select(loc_loss_weight)
+        cls_loss_weight = _select(cls_loss_weight)
+        if isinstance(cls_loss_type, dict):
+            cls_loss_kwargs = (cls_loss_kwargs or {})[mode]
+            cls_loss_type = cls_loss_type[mode]
+        if isinstance(loc_loss_type, dict):
+            loc_loss_kwargs = (loc_loss_kwargs or {})[mode]
+            loc_loss_type = loc_loss_type[mode]
+
+        cls_mean, _ = L.classification_loss(
+            cls_loss_type, labels, logits, endpoint_mask, cls_loss_kwargs
+        )
+        # the predicted encoding of each vertex's labeled class
+        idx = labels.to(torch.int64)[:, None, None].expand(
+            -1, 1, pred_box.shape[2]
+        )
+        pred_sel = torch.gather(pred_box, 1, idx)[:, 0, :]
+        loc_loss, classwise, num_valid = L.localization_loss(
+            loc_loss_type, pred_sel, gt_box, valid_box, labels,
+            self.num_classes, loc_loss_weight=loc_loss_weight,
+            loc_loss_kwargs=loc_loss_kwargs,
+            apply_classwise_weight=(mode == "train"),
+        )
+        return {
+            "cls_loss": cls_loss_weight * cls_mean,
+            "loc_loss": loc_loss,
+            "classwise_loc_loss": classwise,
+            "num_endpoint": torch.sum(endpoint_mask),
+            "num_valid_endpoint": num_valid,
+        }
 
 
 def get_model(model_name: str):

@@ -9,8 +9,12 @@
 
 The fold: ``concat(feat_j, x_j - x_k) @ W0 + b0 == A[j] - B[k]`` with
 ``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernel
-only gathers rows of A.  The edge-list paths are not ported: a layer
-called without slab metadata raises.
+only gathers rows of A.  In training (``slab["train"]`` set) the layers
+call the differentiable ``slab_edge_max_train``: gradients reach the
+kernel's tail weights, and through the folded tables ``W0``, ``b0``, the
+features and the auto-offset MLP; the coordinates of the radius test get
+none.  The edge-list paths are not ported: a layer called without slab
+metadata raises.
 """
 
 from typing import Optional
@@ -58,7 +62,9 @@ def _folded_tables(first, features, src_xyz, ctr_xyz, compute_dtype):
 def _slab_agg(tail, table_a, src4, table_b, ctr4, slab, compute_dtype):
     cd = mlp.as_compute_dtype(compute_dtype) or torch.float32
     weights = [(layer["w"], layer["b"]) for layer in tail]
-    return slab_ops.slab_edge_max(
+    fn = (slab_ops.slab_edge_max_train if slab.get("train")
+          else slab_ops.slab_edge_max)
+    return fn(
         table_a, src4, table_b, ctr4,
         slab["offsets"], slab["center_cell"], weights,
         grid_g=slab["grid_g"], radius=slab["radius"],

@@ -1,7 +1,8 @@
 """MLP building blocks (counterpart of :mod:`pointgnn_tpu.nn.mlp`).
 
 Only the ``NONE`` normalization that every shipped config uses is
-ported.  :func:`dense` rounds its inputs to the compute dtype and
+ported.  The weight regularizers (``l1``, ``l2``, ``l1_l2``) and
+:func:`regularization_loss` enter the training loss.  :func:`dense` rounds its inputs to the compute dtype and
 accumulates in float32, like ``jnp.dot(..., preferred_element_type=
 float32)``: the bf16-rounded operands are multiplied as float32 tensors,
 so the f32 accumulator is never rounded back to bf16.
@@ -84,3 +85,46 @@ def apply_fc(
         normalization_type=normalization_type,
         activation_type=activation_type, compute_dtype=compute_dtype,
     )
+
+
+def l1_regularizer(scale):
+    return lambda w: scale * torch.sum(torch.abs(w))
+
+
+def l2_regularizer(scale):
+    return lambda w: scale * 0.5 * torch.sum(torch.square(w))
+
+
+def l1_l2_regularizer(scale_l1=1.0, scale_l2=1.0):
+    return lambda w: (scale_l1 * torch.sum(torch.abs(w))
+                      + scale_l2 * 0.5 * torch.sum(torch.square(w)))
+
+
+REGULARIZERS = {
+    "l1": l1_regularizer,
+    "l2": l2_regularizer,
+    "l1_l2": l1_l2_regularizer,
+}
+
+
+def named_leaves(tree, key=None):
+    """``(dict key, tensor)`` for every tensor of a parameter tree, in
+    order; a list's items carry the key of the list."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from named_leaves(v, key)
+    elif tree is not None:
+        yield key, tree
+
+
+def regularization_loss(params_tree, reg_fn):
+    """Sum ``reg_fn`` over every dense kernel ``w`` of the tree (weights
+    are regularized, biases are not)."""
+    total = 0.0
+    for key, leaf in named_leaves(params_tree):
+        if key == "w":
+            total = total + reg_fn(leaf)
+    return total

@@ -22,6 +22,18 @@ the activations are re-rounded between layers but not after the last.
 On a CUDA tensor :func:`slab_edge_max` launches the hand-written kernel
 (``csrc/slab_edge_max.cu``) or raises; on a CPU tensor it runs
 :func:`slab_edge_max_reference`, the plain PyTorch version.
+
+Training: :func:`slab_edge_max_train` is the differentiable version (the
+counterpart of the JAX ``slab_edge_max_train`` custom VJP).  Its forward
+is :func:`slab_edge_max`; its backward, :func:`slab_edge_max_backward`,
+recomputes every in-radius pair's chain, routes the output cotangent to
+each pair whose output equals the per-channel max (every tied winner gets
+the full cotangent) and backpropagates through the chain.  On a CUDA
+tensor that is the kernel ``csrc/slab_edge_max_bwd.cu``; on a CPU tensor
+:func:`slab_edge_max_backward_reference`.  Coordinates and cell
+metadata get no gradient.  Both kernels take their chain arithmetic from
+``csrc/slab_chain.cuh``, so the backward's recompute equals the forward
+bit for bit.
 """
 
 import ctypes
@@ -42,13 +54,19 @@ NEG = -1e30
 DEFAULT_BLOCK_CENTERS = 32
 MAX_LAYERS = 8  # kMaxLayers in the CUDA source
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "slab_edge_max.cu"
+_CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+# kernel name -> its source; every source includes the shared header
+SOURCES = {
+    "slab_edge_max": "slab_edge_max.cu",
+    "slab_edge_max_bwd": "slab_edge_max_bwd.cu",
+}
+_HEADERS = ("slab_chain.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_loaded = {}  # source hash -> ctypes library (one build per process)
+_loaded = {}  # library path -> ctypes library (one build per process)
 
 
 def column_row_windows(offsets, center_cell, grid_g, bk, halo):
@@ -150,6 +168,29 @@ def inradius_pair_count(src_xyz, ctr_xyz, offsets, center_cell, grid_g,
     )
 
 
+def winner_counts(table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+                  weights, out, grid_g, radius, halo=1,
+                  compute_dtype="float32",
+                  block_centers=DEFAULT_BLOCK_CENTERS):
+    """``(winner entries, winning pairs)`` of a backward: the (pair,
+    channel) entries whose positive output equals ``out`` (the only
+    entries a cotangent reaches), and the pairs holding at least one of
+    them (the only pairs whose lower layers get a cotangent)."""
+    win_lo, win_hi = column_row_windows(
+        offsets, center_cell, grid_g, block_centers, halo
+    )
+    a, b, chain = _rounded_operands(table_a, table_b, weights,
+                                    compute_dtype)
+    entries = pairs = 0
+    for kc, jc in _pair_chunks(src_xyz, ctr_xyz, win_lo, win_hi,
+                               block_centers, radius, 1 << 17):
+        x = _chain_acts(a, b, chain, kc, jc, compute_dtype)[-1]
+        won = (x == out[kc]) & (x > 0)
+        entries += int(won.sum())
+        pairs += int(won.any(dim=1).sum())
+    return entries, pairs
+
+
 def _chain_out_dim(weights, h):
     return weights[-1][0].shape[1] if weights else h
 
@@ -171,6 +212,21 @@ def slab_edge_max_reference(
     win_lo, win_hi = column_row_windows(
         offsets, center_cell, grid_g, block_centers, halo
     )
+    a, b, chain = _rounded_operands(table_a, table_b, weights,
+                                    compute_dtype)
+    out = torch.full((k, h_out), NEG, dtype=torch.float32,
+                     device=table_a.device)
+    for kc, jc in _pair_chunks(src_xyz, ctr_xyz, win_lo, win_hi,
+                               block_centers, radius, pair_chunk):
+        x = _chain_acts(a, b, chain, kc, jc, compute_dtype)[-1]
+        out.scatter_reduce_(
+            0, kc[:, None].expand(-1, h_out), x, "amax", include_self=True,
+        )
+    return torch.where(out > NEG / 2, out, torch.zeros((), device=out.device))
+
+
+def _rounded_operands(table_a, table_b, weights, compute_dtype):
+    """Tables and chain rounded to the compute dtype, kept float32."""
     a = round_to(table_a.to(torch.float32), compute_dtype)
     b = round_to(table_b.to(torch.float32), compute_dtype)
     chain = [
@@ -178,23 +234,75 @@ def slab_edge_max_reference(
          round_to(bb.to(torch.float32), compute_dtype))
         for w, bb in weights
     ]
-    out = torch.full((k, h_out), NEG, dtype=torch.float32,
-                     device=table_a.device)
-    for kk, jj in _inradius_pairs(
-        src_xyz, ctr_xyz, win_lo, win_hi, block_centers, radius
-    ):
+    return a, b, chain
+
+
+def _pair_chunks(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius, pair_chunk):
+    """The in-radius pairs in chunks of at most ``pair_chunk``: the plain
+    forward and the plain backward walk the same chunks, so the
+    backward's recompute repeats the forward's products bit for bit."""
+    for kk, jj in _inradius_pairs(src_xyz, ctr_xyz, win_lo, win_hi, bk,
+                                  radius):
         for s in range(0, kk.numel(), pair_chunk):
-            kc, jc = kk[s:s + pair_chunk], jj[s:s + pair_chunk]
-            x = round_to(torch.relu(a[jc] - b[kc]), compute_dtype)
-            for li, (w, bb) in enumerate(chain):
-                x = torch.relu(x @ w + bb)
-                if li + 1 < len(chain):
-                    x = round_to(x, compute_dtype)
-            out.scatter_reduce_(
-                0, kc[:, None].expand(-1, h_out), x, "amax",
-                include_self=True,
-            )
-    return torch.where(out > NEG / 2, out, torch.zeros((), device=out.device))
+            yield kk[s:s + pair_chunk], jj[s:s + pair_chunk]
+
+
+def _chain_acts(a, b, chain, kc, jc, compute_dtype):
+    """Every activation of the chain on the pairs ``(kc, jc)``:
+    ``[relu(A - B), layer 1, ..., layer L]`` with the kernel's rounding
+    points."""
+    x = round_to(torch.relu(a[jc] - b[kc]), compute_dtype)
+    acts = [x]
+    for li, (w, bb) in enumerate(chain):
+        x = torch.relu(x @ w + bb)
+        if li + 1 < len(chain):
+            x = round_to(x, compute_dtype)
+        acts.append(x)
+    return acts
+
+
+def slab_edge_max_backward_reference(
+    table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+    weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    out, g, grid_g: int, radius: float, halo: int = 1,
+    compute_dtype="bfloat16",
+    block_centers: int = DEFAULT_BLOCK_CENTERS,
+    pair_chunk: int = 1 << 17,
+):
+    """Plain PyTorch version of :func:`slab_edge_max_backward`.
+
+    Recomputes the chain on the same pair chunks as
+    :func:`slab_edge_max_reference`, gives ``g[k, c]`` to every pair
+    whose output equals ``out[k, c]`` (all tied winners; a zero output
+    is masked by the last ReLU), backpropagates with explicit products
+    (no autograd through a max, whose rule would split ties) and adds
+    the table cotangents with ``index_add_``.  Returns ``(d_table_a,
+    d_table_b, [(d_w, d_b), ...])`` in float32."""
+    win_lo, win_hi = column_row_windows(
+        offsets, center_cell, grid_g, block_centers, halo
+    )
+    a, b, chain = _rounded_operands(table_a, table_b, weights,
+                                    compute_dtype)
+    out = out.to(torch.float32)
+    g = g.to(torch.float32)
+    d_a = torch.zeros_like(a)
+    d_b = torch.zeros_like(b)
+    d_chain = [(torch.zeros_like(w), torch.zeros_like(bb))
+               for w, bb in chain]
+    for kc, jc in _pair_chunks(src_xyz, ctr_xyz, win_lo, win_hi,
+                               block_centers, radius, pair_chunk):
+        acts = _chain_acts(a, b, chain, kc, jc, compute_dtype)
+        dy = torch.where(acts[-1] == out[kc], g[kc],
+                         torch.zeros((), device=g.device))
+        for li in range(len(chain) - 1, -1, -1):
+            dz = dy * (acts[li + 1] > 0)
+            d_chain[li][0].add_(acts[li].T @ dz)
+            d_chain[li][1].add_(dz.sum(0))
+            dy = dz @ chain[li][0].T
+        dab = dy * (acts[0] > 0)
+        d_a.index_add_(0, jc, dab)
+        d_b.index_add_(0, kc, dab, alpha=-1.0)
+    return d_a, d_b, d_chain
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +310,18 @@ def slab_edge_max_reference(
 # ---------------------------------------------------------------------------
 
 
-def _source_hash():
-    return hashlib.sha256(_CSRC.read_bytes()).hexdigest()[:16]
+def _source_hash(name):
+    """Hash of the kernel's source, the headers it includes and the
+    compiler flags: a change to any of them rebuilds it."""
+    h = hashlib.sha256((_CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in _HEADERS:
+        h.update((_CSRC_DIR / header).read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name):
+    return _BUILD_DIR / ("%s_%s.so" % (name, _source_hash(name)))
 
 
 def _nvcc():
@@ -217,52 +335,105 @@ def _nvcc():
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def build_kernel():
-    """Compile ``csrc/slab_edge_max.cu`` for sm_90a into
-    ``build/torch_kernels/`` (keyed by the source hash) unless that
-    library exists.  Returns ``(path, seconds, compiler output)``."""
-    lib_path = _BUILD_DIR / ("slab_edge_max_%s.so" % _source_hash())
-    if lib_path.exists():
-        return lib_path, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(".so.tmp%d" % os.getpid())
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed building %s:\n%s%s"
-            % (_CSRC, proc.stdout, proc.stderr)
+def build_kernels(names=None):
+    """Compile the kernels' sources for sm_90a into ``build/torch_kernels/``
+    (keyed by the source hash), one ``nvcc`` per missing library, all
+    started together.  Returns ``{name: (path, seconds, compiler
+    output)}``; a library that exists already reports 0 s and no output."""
+    names = list(SOURCES) if names is None else list(names)
+    result, running = {}, {}
+    for name in names:
+        lib_path = _lib_path(name)
+        if lib_path.exists():
+            result[name] = (lib_path, 0.0, "")
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(".so.tmp%d" % os.getpid())
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+             str(_CSRC_DIR / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, lib_path)
-    return lib_path, time.perf_counter() - t0, proc.stdout + proc.stderr
+        running[name] = (proc, tmp, lib_path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib_path, t0) in running.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed building %s:\n%s"
+                          % (SOURCES[name], log))
+            continue
+        os.replace(tmp, lib_path)
+        result[name] = (lib_path, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
-def _kernel_lib():
-    key = _source_hash()
-    if key not in _loaded:
-        path, _, _ = build_kernel()
+def _kernel_lib(name):
+    path = _lib_path(name)
+    if path not in _loaded:
+        build_kernels([name])
         lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.slab_edge_max_launch.restype = ci
-        lib.slab_edge_max_launch.argtypes = [
-            vp, vp, vp, vp,          # table_a, src_xyz, table_b, ctr_xyz
-            vp, vp,                  # win_lo, win_hi
-            vp, vp, ci,              # weights, layer table (host), layers
-            vp,                      # out
-            ci, ci, ci, ci, ci,      # K, H, H_out, grid_g, bk
-            ctypes.c_float, ci,      # r^2, bf16
-            ci, vp,                  # device index, stream
-        ]
-        _loaded[key] = lib
-    return _loaded[key]
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "slab_edge_max":
+            fn = lib.slab_edge_max_launch
+            fn.argtypes = [
+                vp, vp, vp, vp,          # table_a, src_xyz, table_b, ctr_xyz
+                vp, vp,                  # win_lo, win_hi
+                vp, vp, ci,              # weights, layer table (host), layers
+                vp,                      # out
+                ci, ci, ci, ci, ci,      # K, H, H_out, grid_g, bk
+                cf, ci,                  # r^2, bf16
+                ci, vp,                  # device index, stream
+            ]
+        else:
+            fn = lib.slab_edge_max_bwd_launch
+            fn.argtypes = [
+                vp, vp, vp, vp,          # table_a, src_xyz, table_b, ctr_xyz
+                vp, vp, vp, vp,          # win_lo, win_hi, win_base, row_col
+                vp, vp, vp, ci, ci,      # weights, weights^T, table, L, n_w
+                vp, vp,                  # forward out, cotangent
+                vp, vp, vp, vp, vp,      # da_part, d_a, d_b, dw_part, d_w
+                ci, ci, ci, ci, ci, ci,  # K, P, H, H_out, grid_g, bk
+                cf,                      # r^2
+                ci, vp,                  # device index, stream
+            ]
+        fn.restype = ci
+        _loaded[path] = lib
+    return _loaded[path]
 
 
 def _require(cond, msg):
     if not cond:
         raise ValueError("slab_edge_max: " + msg)
+
+
+def _flat_chain(weights, cd, device, transpose=False):
+    """The chain as one flat float32 buffer ``[w_0, b_0, w_1, ...]``
+    (rounded to ``cd``; each ``w`` as ``[dout, din]`` when
+    ``transpose``), its host layer table (weight offset, bias offset,
+    din, dout) and its length."""
+    flat, meta, off = [], [], 0
+    for w, b in weights:
+        wr = round_to(w, cd)
+        wr = (wr.T if transpose else wr).contiguous().reshape(-1)
+        br = round_to(b, cd).reshape(-1)
+        meta += [off, off + wr.numel(), w.shape[0], w.shape[1]]
+        flat += [wr, br]
+        off += wr.numel() + br.numel()
+    flat_w = torch.cat(flat) if flat else torch.zeros(1, device=device)
+    return flat_w, (ctypes.c_int * max(len(meta), 1))(*meta), off
+
+
+def _compute_dtype_name(compute_dtype):
+    cd = str(compute_dtype).replace("torch.", "")
+    _require(cd in ("bfloat16", "float32"),
+             "compute_dtype must be bfloat16 or float32")
+    return cd
 
 
 def _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
@@ -322,27 +493,16 @@ def slab_edge_max(
     if table_a.device.type != "cuda":
         raise ValueError("slab_edge_max: unsupported device %s"
                          % table_a.device)
-    cd = str(compute_dtype).replace("torch.", "")
-    _require(cd in ("bfloat16", "float32"),
-             "compute_dtype must be bfloat16 or float32")
+    cd = _compute_dtype_name(compute_dtype)
     k, h = table_b.shape
     h_out = _chain_out_dim(weights, h)
     win_lo, win_hi = column_row_windows(
         offsets, center_cell, grid_g, block_centers, halo
     )
-    flat, meta, off = [], [], 0
-    for w, b in weights:
-        wr = round_to(w, cd).reshape(-1)
-        br = round_to(b, cd).reshape(-1)
-        meta += [off, off + wr.numel(), w.shape[0], w.shape[1]]
-        flat += [wr, br]
-        off += wr.numel() + br.numel()
-    flat_w = (torch.cat(flat) if flat
-              else torch.zeros(1, device=table_a.device))
-    meta_host = (ctypes.c_int * max(len(meta), 1))(*meta)
+    flat_w, meta_host, _ = _flat_chain(weights, cd, table_a.device)
     out = torch.empty((k, h_out), dtype=torch.float32, device=table_a.device)
     stream = torch.cuda.current_stream(table_a.device)
-    rc = _kernel_lib().slab_edge_max_launch(
+    rc = _kernel_lib("slab_edge_max").slab_edge_max_launch(
         table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
         ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
         flat_w.data_ptr(), ctypes.addressof(meta_host), len(weights),
@@ -358,3 +518,145 @@ def slab_edge_max(
 
 
 slab_edge_max.launches = 0
+
+
+def slab_edge_max_backward(
+    table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+    weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    out,            # [K, H_out] float32 forward output of slab_edge_max
+    g,              # [K, H_out] float32 cotangent of ``out``
+    grid_g: int,
+    radius: float,
+    halo: int = 1,
+    compute_dtype="float32",
+    block_centers: int = DEFAULT_BLOCK_CENTERS,
+):
+    """Backward of :func:`slab_edge_max` in float32 (training's compute
+    dtype): ``(d_table_a [P, H], d_table_b [K, H], [(d_w, d_b), ...])``.
+    Winners are the pairs whose recomputed output equals ``out`` (pass
+    the forward's own output)."""
+    _require(_compute_dtype_name(compute_dtype) == "float32",
+             "the backward runs in float32 only")
+    weights = [tuple(wb) for wb in weights]
+    _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
+                  center_cell, weights, grid_g)
+    k, h = table_b.shape
+    h_out = _chain_out_dim(weights, h)
+    for name, t in (("out", out), ("g", g)):
+        _require(t.shape == (k, h_out), "%s must be [K, H_out]" % name)
+        _require(t.dtype == torch.float32, "%s must be float32" % name)
+        _require(t.device == table_a.device,
+                 "all inputs must be on %s" % table_a.device)
+    if table_a.device.type == "cpu":
+        return slab_edge_max_backward_reference(
+            table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+            weights, out, g, grid_g, radius, halo, compute_dtype,
+            block_centers,
+        )
+    if table_a.device.type != "cuda":
+        raise ValueError("slab_edge_max_backward: unsupported device %s"
+                         % table_a.device)
+    dev = table_a.device
+    p = table_a.shape[0]
+    win_lo, win_hi = column_row_windows(
+        offsets, center_cell, grid_g, block_centers, halo
+    )
+    nb = win_lo.shape[0]
+    # each (block, column) window gets a slot of (hi - lo) partial rows
+    lens = (win_hi - win_lo).clamp(min=0).reshape(-1).to(torch.int64)
+    ends = torch.cumsum(lens, 0)
+    win_base = (ends - lens).to(torch.int32).reshape(nb, grid_g)
+    total_rows = int(ends[-1]) if ends.numel() else 0
+    ncells = grid_g * grid_g
+    cell = torch.searchsorted(
+        offsets[1:].contiguous(),
+        torch.arange(p, dtype=torch.int32, device=dev), right=True,
+    )
+    row_col = torch.where(cell < ncells, cell // grid_g,
+                          torch.full_like(cell, -1)).to(torch.int32)
+    flat_w, meta_host, n_weights = _flat_chain(weights, "float32", dev)
+    flat_t, _, _ = _flat_chain(weights, "float32", dev, transpose=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    da_part = torch.empty(max(total_rows, 1) * h, **f32)
+    dw_part = torch.empty(max(nb * n_weights, 1), **f32)
+    d_w = torch.empty(max(n_weights, 1), **f32)
+    d_a = torch.empty((p, h), **f32)
+    d_b = torch.empty((k, h), **f32)
+    g = g.contiguous()
+    out = out.contiguous()
+    stream = torch.cuda.current_stream(dev)
+    rc = _kernel_lib("slab_edge_max_bwd").slab_edge_max_bwd_launch(
+        table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
+        ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
+        win_base.data_ptr(), row_col.data_ptr(), flat_w.data_ptr(),
+        flat_t.data_ptr(), ctypes.addressof(meta_host), len(weights),
+        n_weights, out.data_ptr(), g.data_ptr(), da_part.data_ptr(),
+        d_a.data_ptr(), d_b.data_ptr(), dw_part.data_ptr(), d_w.data_ptr(),
+        k, p, h, h_out, grid_g, block_centers, _radius2(radius),
+        dev.index or 0, stream.cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("slab_edge_max_backward kernel launch failed: "
+                           "CUDA error %d" % rc)
+    slab_edge_max_backward.launches += 1
+    d_chain, off = [], 0
+    for w, b in weights:
+        dw = d_w[off:off + w.numel()].view(w.shape)
+        off += w.numel()
+        db = d_w[off:off + b.numel()].view(b.shape)
+        off += b.numel()
+        d_chain.append((dw, db))
+    return d_a, d_b, d_chain
+
+
+slab_edge_max_backward.launches = 0
+
+
+class _SlabEdgeMaxTrain(torch.autograd.Function):
+    """Forward :func:`slab_edge_max`, backward
+    :func:`slab_edge_max_backward`; the chain arrives flattened as
+    ``w_0, b_0, w_1, b_1, ...`` after the static options."""
+
+    @staticmethod
+    def forward(ctx, table_a, src_xyz, table_b, ctr_xyz, offsets,
+                center_cell, opts, *flat):
+        weights = list(zip(flat[0::2], flat[1::2]))
+        out = slab_edge_max(table_a, src_xyz, table_b, ctr_xyz, offsets,
+                            center_cell, weights, **opts)
+        ctx.save_for_backward(table_a, src_xyz, table_b, ctr_xyz, offsets,
+                              center_cell, out, *flat)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell, out,
+         *flat) = ctx.saved_tensors
+        weights = list(zip(flat[0::2], flat[1::2]))
+        d_a, d_b, d_chain = slab_edge_max_backward(
+            table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+            weights, out, g.to(torch.float32).contiguous(), **ctx.opts,
+        )
+        d_flat = [t for wb in d_chain for t in wb]
+        # coordinates and cell metadata are graph structure: no gradient
+        return (d_a, None, d_b, None, None, None, None, *d_flat)
+
+
+def slab_edge_max_train(
+    table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+    weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    grid_g: int,
+    radius: float,
+    halo: int = 1,
+    compute_dtype="bfloat16",
+    block_centers: int = DEFAULT_BLOCK_CENTERS,
+):
+    """Differentiable :func:`slab_edge_max` for the training path: the
+    same forward; gradients reach ``table_a``, ``table_b`` and the chain
+    weights through :func:`slab_edge_max_backward`, which runs in
+    float32 only (the backward raises for another compute dtype)."""
+    opts = dict(grid_g=grid_g, radius=radius, halo=halo,
+                compute_dtype=compute_dtype, block_centers=block_centers)
+    flat = [t for wb in weights for t in wb]
+    return _SlabEdgeMaxTrain.apply(table_a, src_xyz, table_b, ctr_xyz,
+                                   offsets, center_cell, opts, *flat)

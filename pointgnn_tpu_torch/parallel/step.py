@@ -1,0 +1,155 @@
+"""The single-device training step (counterpart of the single-device
+branches of :mod:`pointgnn_tpu.parallel.step`).
+
+The step takes a stack of ``frames_per_device`` DeviceFrames (the
+on-device pipeline), builds each frame's graph on its own
+grid, runs the model and the loss frame by frame, and combines them
+with the graph-union endpoint weighting of the reference's batching:
+
+    cls = sum_f cls_f * n_ep_f / sum_f n_ep_f     (loc: n_val_f)
+
+The parameters are updated in place (one set of tensors, the leaves of
+``state.params``); the returned state carries the next step count.  The
+data-parallel (mesh) step, with its endpoint reweighting across devices,
+is not ported yet.
+"""
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from pointgnn_tpu_torch.graph import device_builder as db
+from pointgnn_tpu_torch.train import metrics as metrics_lib
+from pointgnn_tpu_torch.train.optimizers import param_leaves
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: Any
+    opt_state: Any
+
+
+def init_train_state(params, optimizer) -> TrainState:
+    return TrainState(step=0, params=params,
+                      opt_state=optimizer.init(params))
+
+
+def _frame(batch, f):
+    """Frame ``f`` of a stacked DeviceFrame (every leaf indexed)."""
+    return type(batch)(*[
+        type(x)(*[y[f] for y in x]) if isinstance(x, tuple) else x[f]
+        for x in batch
+    ])
+
+
+def make_union_sums_fn(model, loss_cfg, graph_builder,
+                       frames_per_device: int, with_metrics: bool = False):
+    """Loss SUMS over ``frames_per_device`` stacked frames.
+
+    Returns ``sums_fn(params, frames_batch, rnds=None) -> (acc,
+    reg_loss)``: ``acc`` holds ``cls_w`` (sum of cls_f * n_ep_f),
+    ``loc_w``, ``n_ep``, ``n_val``, the summed ``classwise`` breakdown
+    and, with metrics, the summed metric counts.  ``rnds`` holds one
+    frame's graph randomization (``(shift, perm)`` draws) per frame."""
+
+    def frame_terms(params, frame, rnd):
+        graph = graph_builder(frame, rnd)
+        logits, boxes = model.apply(params, graph)
+        d = model.loss(
+            logits, graph.cls_labels, boxes, graph.encoded_boxes,
+            graph.valid_boxes, graph.vertex_mask[model.output_graph_level],
+            **loss_cfg,
+        )
+        n_ep = d["num_endpoint"].to(torch.float32)
+        n_val = d["num_valid_endpoint"].to(torch.float32)
+        out = {
+            "cls_w": d["cls_loss"] * n_ep,
+            "loc_w": d["loc_loss"] * n_val,
+            "n_ep": n_ep,
+            "n_val": n_val,
+            "classwise": d["classwise_loc_loss"],
+        }
+        if with_metrics:
+            out.update(metrics_lib.device_updates(
+                logits.detach(), graph.cls_labels,
+                graph.vertex_mask[model.output_graph_level],
+                model.num_classes,
+            ))
+        return out
+
+    def sums_fn(params, frames_batch, rnds=None):
+        acc = None
+        for f in range(frames_per_device):
+            rnd = None if rnds is None else rnds[f]
+            terms = frame_terms(params, _frame(frames_batch, f), rnd)
+            acc = terms if acc is None else {
+                k: acc[k] + v for k, v in terms.items()
+            }
+        return acc, model.reg_loss(params)
+
+    return sums_fn
+
+
+def graph_generator(seed: int, step: int, frame: int, device):
+    """The generator of one frame's graph randomization in one step
+    (``device_builder.draw_randomization``): seeded from (seed, step,
+    frame), so a resumed run sees the graphs the uninterrupted run would
+    have seen."""
+    mixed = ((seed * 1000003 + step) * 1000003 + frame) % (2 ** 63)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def make_train_step(
+    model,
+    optimizer,
+    loss_cfg: dict,
+    graph_builder,
+    frames_per_device: int = 1,
+    with_metrics: bool = False,
+    graph_rng_seed: Optional[int] = None,
+):
+    """``step(state, batch) -> (state, aux)`` on one device.
+
+    ``batch`` is a stack of ``frames_per_device`` DeviceFrames on the
+    device; ``graph_builder`` builds each frame's graph.
+    ``graph_rng_seed`` randomizes each frame's graph per step."""
+    # f32 training: the dense layers outside the kernels must not drop
+    # to TF32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sums_fn = make_union_sums_fn(model, loss_cfg, graph_builder,
+                                 frames_per_device, with_metrics)
+
+    def _rnds(step_no, batch):
+        if graph_rng_seed is None:
+            return None
+        points = batch.packed_points
+        return [db.draw_randomization(points.shape[-2], graph_generator(
+            graph_rng_seed, step_no, f, points.device))
+            for f in range(frames_per_device)]
+
+    def step(state: TrainState, batch):
+        for t in param_leaves(state.params):
+            t.grad = None
+        acc, reg = sums_fn(state.params, batch, _rnds(state.step, batch))
+        cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+        loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+        total = cls + loc + reg
+        total.backward()
+        aux = {
+            "cls_loss": cls, "loc_loss": loc, "reg_loss": reg,
+            "total_loss": total,
+            "classwise_loc_loss": acc["classwise"] / frames_per_device,
+            "num_endpoint": acc["n_ep"],
+            "num_valid_endpoint": acc["n_val"],
+        }
+        if with_metrics:
+            for k in ("confusion", "pr_pos_hist", "pr_neg_hist"):
+                aux[k] = acc[k]
+        optimizer.apply(state.opt_state, state.params)
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in aux.items()}
+        return TrainState(state.step + 1, state.params,
+                          state.opt_state), aux
+
+    return step

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA slab_edge_max kernel
-against its plain PyTorch version, and the launch count of the serving
-path.  They import no JAX, so on a machine without JAX they run with
+and its backward kernel against their plain PyTorch versions, and the
+launch counts of the serving path and of a train step.  They import no
+JAX, so on a machine without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -12,9 +13,16 @@ import pytest
 import torch
 
 from pointgnn_tpu_torch import configs
+from pointgnn_tpu_torch.data.labels import LABEL_MAP_CAR
 from pointgnn_tpu_torch.graph import device_builder as db
+from pointgnn_tpu_torch.graph import device_labels as dl
 from pointgnn_tpu_torch.infer import InferencePipeline
+from pointgnn_tpu_torch.model.losses import loss_config
+from pointgnn_tpu_torch.model.pointgnn import PointGNN
 from pointgnn_tpu_torch.nn import slab
+from pointgnn_tpu_torch.parallel import step as step_lib
+from pointgnn_tpu_torch.train import device_pipeline as dpipe
+from pointgnn_tpu_torch.train import optimizers
 from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +125,106 @@ def test_serving_launches_once_per_slab_layer(cuda):
     cls, boxes, scores, _ = pipe.run_frame(pts)
     assert slab.slab_edge_max.launches == before + 3  # 1 x L0 + T x L1
     assert np.isfinite(boxes).all() and boxes.shape[1:] == (7,)
+
+
+# The backward kernel sums the same f32 products as the plain version in
+# another order (and the plain version's dW is a cuBLAS product), a few
+# ulps of sums over up to a few hundred pairs; the winners agree because
+# the kernel's recompute equals the forward kernel bit for bit and the
+# plain version recomputes its own forward.
+BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("level,widths", [
+    (0, [32, 64, 128, 300]), (1, [300, 300]), (1, [36, 20]),
+])
+def test_backward_kernel_matches_plain_version(cuda, level, widths):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, graph = _graph(cuda)
+    kw = dict(_call(graph, spec, level, widths, cuda),
+              compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    out = slab.slab_edge_max(**kw)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    before = slab.slab_edge_max_backward.launches
+    got = slab.slab_edge_max_backward(**kw, out=out, g=g)
+    again = slab.slab_edge_max_backward(**kw, out=out, g=g)
+    torch.cuda.synchronize()
+    assert slab.slab_edge_max_backward.launches == before + 2
+    ref_out = slab.slab_edge_max_reference(**kw)
+    ref = slab.slab_edge_max_backward_reference(**kw, out=ref_out, g=g)
+    flat = lambda r: [r[0], r[1]] + [t for wb in r[2] for t in wb]  # noqa
+    for x, y, z in zip(flat(got), flat(again), flat(ref)):
+        assert x.shape == z.shape
+        assert torch.equal(x, y)  # no atomics: bitwise reproducible
+        err = (x - z).abs().max().item()
+        assert err <= BWD_TOL * (1 + z.abs().max().item()), err
+    assert got[0].abs().sum() > 0 and got[1].abs().sum() > 0
+
+
+def test_train_step_launches_both_kernels(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("car_auto_T1_train")
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS, runtime=False)
+    dspec, extra = dpipe.resolve_device_setup(cfg, spec)
+    model = PointGNN(num_classes=4, box_encoding_len=7, mode="train",
+                     **extra, **cfg["model_kwargs"])
+    params = model.init(seed=0, input_dim=1, device=cuda)
+    for t in optimizers.param_leaves(params):
+        t.requires_grad_(True)
+    opt, _ = optimizers.build_from_train_config(
+        configs.get_train_config("car_auto_T1_train"))
+    state = step_lib.init_train_state(params, opt)
+    step = step_lib.make_train_step(
+        model, opt, loss_config(cfg), with_metrics=True,
+        graph_builder=dpipe.make_graph_builder(
+            dspec, model.output_graph_level, cfg),
+        graph_rng_seed=0, frames_per_device=2,
+    )
+    frames = []
+    for seed in (0, 1):
+        pts, labels = synthetic_lidar_frame(seed=seed, n_beams=32,
+                                            points_per_beam=160)
+        frames.append(dpipe.DeviceFrame(
+            db.pack_points(pts.xyz, pts.attr[:, :1], NUM_POINTS),
+            dl.pack_frame_labels(labels, LABEL_MAP_CAR, 4),
+        ))
+    batch = dpipe.frames_to_device(dpipe.stack_frames(frames), cuda)
+    k1, k2 = slab.slab_edge_max.launches, slab.slab_edge_max_backward.launches
+    state, aux = step(state, batch)
+    torch.cuda.synchronize()
+    # 2 frames x (1 level-0 + T level-1 layers), forward and backward
+    assert slab.slab_edge_max.launches == k1 + 4
+    assert slab.slab_edge_max_backward.launches == k2 + 4
+    assert np.isfinite(float(aux["total_loss"]))
+
+
+def test_backward_kernel_gives_tied_winners_full_cotangent(cuda):
+    """Two candidate rows with the same coordinates and table row tie
+    exactly wherever one wins a channel: the kernel, like its plain
+    version, gives both the full cotangent."""
+    spec, graph = _graph(cuda)
+    kw = dict(_call(graph, spec, 1, [300, 300], cuda),
+              compute_dtype="float32")
+    offsets = kw["offsets"].long()
+    counts = offsets[1:] - offsets[:-1]
+    # the first row of the fullest cell and its neighbour in that cell
+    j = int(offsets[:-1][torch.argmax(counts)])
+    src, table_a = kw["src_xyz"].clone(), kw["table_a"].clone()
+    src[j + 1] = src[j]
+    table_a[j] += 3.0
+    table_a[j + 1] = table_a[j]
+    kw.update(src_xyz=src, table_a=table_a)
+    out = slab.slab_edge_max(**kw)
+    g = torch.ones_like(out)
+    d_a, d_b, d_w = slab.slab_edge_max_backward(**kw, out=out, g=g)
+    ref_out = slab.slab_edge_max_reference(**kw)
+    ref = slab.slab_edge_max_backward_reference(**kw, out=ref_out, g=g)
+    torch.cuda.synchronize()
+    assert d_a[j].abs().sum() > 0
+    assert torch.equal(d_a[j], d_a[j + 1])
+    for x, z in zip([d_a, d_b, d_w[0][0], d_w[0][1]],
+                    [ref[0], ref[1], ref[2][0][0], ref[2][0][1]]):
+        err = (x - z).abs().max().item()
+        assert err <= BWD_TOL * (1 + z.abs().max().item()), err
