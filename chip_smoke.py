@@ -6,8 +6,9 @@
 Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
 
 1. prints the card's name and power limit and builds the CUDA kernels
-   (``pointgnn_tpu_torch/csrc/slab_edge_max.cu`` and
-   ``slab_edge_max_bwd.cu``, one nvcc each, started together, sm_90a);
+   (``pointgnn_tpu_torch/csrc/slab_edge_max.cu``,
+   ``slab_edge_max_bwd.cu``, ``edge_tail_max.cu`` and
+   ``fused_edge_max.cu``, one nvcc each, started together, sm_90a);
 2. holds ``slab_edge_max`` (K1) against its plain PyTorch version on the
    level-0 and level-1 slab metadata of a full-size car_auto_T3 frame
    (24576 points, 12288 keypoints) in bf16, and times both; also checks
@@ -33,8 +34,20 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
    capacity with the same injected graph randomization, and also with
    the card running the plain slab versions, to tell the kernels' share
    of the gap from the rest of the card's f32 path;
-8. prints one ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+8. holds ``edge_tail_max`` (K3) and ``fused_edge_max`` (K4) against
+   their plain versions on the inputs the edge-list model gives them on
+   the seed-100 frame (capped radius edge lists, per-center caps 32 / 192
+   as ``bench.py:423-426``), level 0 and the first level-1 layer, in bf16,
+   K4 against K3 bitwise, and both in f32 at a small size; times both;
+9. serves 8 frames through ``run_frame`` on the edge-list path
+   (``slab=False``, full width, random weights from seed 0) with the
+   launch counts reset just before and read just after: 4 K3 launches
+   and no K1 per frame; then 2 frames with ``slab="l1"``: 1 K3 and 3 K1
+   launches per frame;
+10. compares the edge-list model on the card with the CPU on a small
+    frame, in f32: edge lists bitwise, outputs within 1e-3;
+11. prints one ``{"kernels": [...]}`` line and, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
 line.  It exits non-zero at once when no CUDA device is visible or the
@@ -59,6 +72,10 @@ PEAK_BYTES = 3.35e12
 NUM_POINTS, NUM_KEYPOINTS = 24576, 12288
 FRAMES = 8
 BF16_TOL = 2e-2  # |kernel - plain| <= tol * (1 + |plain|)
+# K3/K4 vs their plain versions in bf16: both round at the same points,
+# so they may differ only where an f32 sum in another order flips a
+# bf16 rounding
+TAIL_MAX_ULPS = 2
 TRAIN_STEPS = 3
 # K2 vs plain, per gradient tensor: |kernel - plain| <= tol * (1 + max
 # |plain|).  f32 sums of the same products in other orders (the plain
@@ -75,6 +92,25 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def kernel_wrappers():
+    """The launch-counting wrapper of every kernel, by kernel name."""
+    from pointgnn_tpu_torch.nn import edge_tail, slab
+
+    return {"slab_edge_max": slab.slab_edge_max,
+            "slab_edge_max_backward": slab.slab_edge_max_backward,
+            "edge_tail_max": edge_tail.edge_tail_max,
+            "fused_edge_max": edge_tail.fused_edge_max}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -82,6 +118,16 @@ def card_line():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip()
+
+
+def bf16_ulps(out, ref):
+    """Largest |out - ref| in bf16 ulps of |ref| (a zero counts as the
+    smallest normal)."""
+    import torch
+
+    mag = ref.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return ((out - ref).abs() / ulp).max().item()
 
 
 def time_ms(fn, runs, warmup=2):
@@ -274,7 +320,6 @@ def serving_phase(report, device):
     from pointgnn_tpu_torch import configs
     from pointgnn_tpu_torch.graph import device_builder as db
     from pointgnn_tpu_torch.infer import InferencePipeline
-    from pointgnn_tpu_torch.nn import slab
     from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
 
     cfg = configs.model_config("Car", T=3)
@@ -289,7 +334,7 @@ def serving_phase(report, device):
     pipe.time_dict.clear()
     buckets = {}
     detections = []
-    slab.slab_edge_max.launches = 0
+    reset_counts()
     t_all = time.perf_counter()
     for pts in frames:
         before = dict(pipe.time_dict)
@@ -306,10 +351,12 @@ def serving_phase(report, device):
         check(set(np.unique(cls).tolist()) <= {1}, "unfolded classes")
         detections.append(int(len(cls)))
     wall = time.perf_counter() - t_all
-    launches = slab.slab_edge_max.launches
+    counts = read_counts()
+    launches = counts["slab_edge_max"]
     check(launches == 4 * FRAMES,
           "slab_edge_max launched %d times over %d frames, want %d"
           % (launches, FRAMES, 4 * FRAMES))
+    check(counts["edge_tail_max"] == 0, "the slab path launched K3")
     med = {k: statistics.median(v) for k, v in buckets.items()}
     report["serving"] = dict(
         frames=FRAMES, launches=launches, detections=detections,
@@ -575,7 +622,6 @@ def train_phase(report, device):
     import torch
 
     from pointgnn_tpu_torch.infer import input_feature_dim
-    from pointgnn_tpu_torch.nn import slab
     from pointgnn_tpu_torch.parallel import step as step_lib
     from pointgnn_tpu_torch.train import metrics as metrics_lib
     from pointgnn_tpu_torch.train import optimizers
@@ -602,8 +648,7 @@ def train_phase(report, device):
     torch.cuda.synchronize()
 
     metrics = metrics_lib.StreamingMetrics(model.num_classes)
-    slab.slab_edge_max.launches = 0
-    slab.slab_edge_max_backward.launches = 0
+    reset_counts()
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -613,8 +658,9 @@ def train_phase(report, device):
         losses.append({k: float(aux[k]) for k in (
             "cls_loss", "loc_loss", "reg_loss", "total_loss")})
         metrics.update(aux)
-    k1 = slab.slab_edge_max.launches
-    k2 = slab.slab_edge_max_backward.launches
+    counts = read_counts()
+    k1 = counts["slab_edge_max"]
+    k2 = counts["slab_edge_max_backward"]
     per_step = 4 * frames_per_device  # (1 level-0 + 3 level-1) per frame
     check(k1 == per_step * TRAIN_STEPS,
           "K1 launched %d times over %d steps, want %d"
@@ -819,6 +865,341 @@ def grad_parity_phase(report, device):
              [c["fwd_entries_differ"] for c in call_gaps]), flush=True)
 
 
+# car_auto_T3 edge-list capacity: per-center caps of bench.py:423-426
+EDGE_CAPS = (32, 192)
+L1_FRAMES = 2
+
+
+def edge_spec(cfg, **kw):
+    """The smoke spec with the edge-list caps (slab flags off)."""
+    from pointgnn_tpu_torch.graph import device_builder as db
+
+    kw.setdefault("num_points", NUM_POINTS)
+    kw.setdefault("num_keypoints", NUM_KEYPOINTS)
+    return db.spec_from_config(cfg, per_center_caps=EDGE_CAPS, **kw)
+
+
+def edge_pipeline(device, slab=False):
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.infer import InferencePipeline
+
+    cfg = configs.model_config("Car", T=3)
+    return InferencePipeline(cfg, device_spec=edge_spec(cfg),
+                             compute_dtype="bfloat16", seed=0, device=device,
+                             slab=slab)
+
+
+def capture_tail_inputs(pipe, pts):
+    """Serve ``pts`` and record the edge-list tail's inputs of every
+    layer as the model gives them: ``[(table_a, table_b, edges_src,
+    tail weights), ...]`` (level 0 first)."""
+    from pointgnn_tpu_torch.nn import layers
+
+    calls = []
+    orig = layers._tail_agg
+
+    def recording(tail, table_a, table_b, edges_src, compute_dtype):
+        calls.append((table_a.clone(), table_b.clone(), edges_src.clone(),
+                      [(layer["w"], layer["b"]) for layer in tail]))
+        return orig(tail, table_a, table_b, edges_src, compute_dtype)
+
+    layers._tail_agg = recording
+    try:
+        pipe.run_frame(pts)
+    finally:
+        layers._tail_agg = orig
+    return calls
+
+
+def tail_args(call, dtype, centers=None):
+    """K3 and K4 arguments of one recorded call, in ``dtype``, as the
+    layer builds them (gather ``A[min(src, N-1)]``, sentinel mask),
+    optionally cut to the first ``centers`` centers."""
+    import torch
+
+    table_a, table_b, src, weights = call
+    n, k = table_a.shape[0], table_b.shape[0]
+    src = src.reshape(k, -1)
+    if centers is not None:
+        table_b, src = table_b[:centers], src[:centers]
+        k = centers
+    a = table_a.to(dtype).contiguous()
+    b = table_b.to(dtype).contiguous()
+    valid = (src < n).to(torch.float32).contiguous()
+    gathered = a.index_select(
+        0, torch.clamp(src.reshape(-1).long(), max=n - 1)).contiguous()
+    k3 = dict(gathered=gathered, table_b=b, slot_valid=valid,
+              weights=weights)
+    k4 = dict(table_a=a, table_b=b, edges_src=src.to(torch.int32)
+              .contiguous(), slot_valid=valid, weights=weights)
+    return k3, k4
+
+
+def tail_bound(args, fused):
+    """Least time (ms) of one K3 (or K4) call: its bytes over the memory
+    rate against the chain's operations on this run's valid slots over
+    the bf16 peak.  Bytes: the valid rows of G (K4: the whole A table
+    and the edges), B, the flags, the weights as the kernel reads them
+    (f32) and the output."""
+    valid = args["slot_valid"]
+    n_valid = int((valid > 0).sum())
+    b = args["table_b"]
+    h = b.shape[1]
+    weights = args["weights"]
+    flops = 2 * h
+    n_bytes = 0
+    for w, bias in weights:
+        flops += 2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
+        n_bytes += 4 * (w.numel() + bias.numel())
+    flops *= n_valid
+    h_out = weights[-1][0].shape[1] if weights else h
+    if fused:
+        a = args["table_a"]
+        n_bytes += a.numel() * a.element_size()
+        n_bytes += args["edges_src"].numel() * 4
+    else:
+        n_bytes += n_valid * h * args["gathered"].element_size()
+    n_bytes += b.numel() * b.element_size() + valid.numel() * 4
+    n_bytes += 4 * b.shape[0] * h_out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes"), flops, n_bytes
+
+
+def edge_kernel_phase(report, device):
+    """Phase 8: K3 and K4 vs their plain versions (and K4 vs K3) on the
+    inputs the edge-list model gives them on the seed-100 frame."""
+    import torch
+
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import select_input_features
+    from pointgnn_tpu_torch.nn import edge_tail
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    pipe = edge_pipeline(device)
+    pts, _ = synthetic_lidar_frame(seed=100, points_per_beam=380)
+    calls = capture_tail_inputs(pipe, pts)
+    check(len(calls) == 4, "%d edge-list layers, want 4" % len(calls))
+    packed = torch.from_numpy(db.pack_points(
+        pts.xyz, select_input_features(pts.attr, "i"), NUM_POINTS
+    )).to(device)
+    _, counters = db.build_padded_graph(*db.unpack_points(packed),
+                                        pipe.device_spec,
+                                        return_counters=True)
+    levels = {}
+    for level, call in ((0, calls[0]), (1, calls[1])):
+        k3, k4 = tail_args(call, torch.bfloat16)
+        out3 = edge_tail.edge_tail_max(**k3)
+        out4 = edge_tail.fused_edge_max(**k4)
+        torch.cuda.synchronize()
+        ref = edge_tail.edge_tail_max_reference(**k3)
+        ref4 = edge_tail.fused_edge_max_reference(**k4)
+        check(torch.equal(ref, ref4), "L%d: the plain versions differ"
+              % level)
+        errs = {}
+        for name, out in (("K3", out3), ("K4", out4)):
+            check(out.shape == ref.shape, "L%d %s: shape %s vs %s"
+                  % (level, name, tuple(out.shape), tuple(ref.shape)))
+            check(bool(torch.isfinite(out).all()),
+                  "L%d %s: non-finite" % (level, name))
+            err = (out - ref).abs()
+            rel = (err / (1.0 + ref.abs())).max().item()
+            check(rel <= BF16_TOL, "L%d %s: kernel vs plain %.3g > %.3g"
+                  % (level, name, rel, BF16_TOL))
+            ulps = bf16_ulps(out, ref)
+            check(ulps <= TAIL_MAX_ULPS, "L%d %s: kernel vs plain %.3g bf16"
+                  " ulps > %d" % (level, name, ulps, TAIL_MAX_ULPS))
+            errs[name] = (err.max().item(), rel, ulps)
+        check(torch.equal(out3, out4), "L%d: K4 differs from K3" % level)
+        row = dict(K=k3["table_b"].shape[0], S=k3["slot_valid"].shape[1],
+                   rows_a=k4["table_a"].shape[0],
+                   widths=[k3["table_b"].shape[1]] + [
+                       w.shape[1] for w, _ in k3["weights"]],
+                   valid_slots=int((k3["slot_valid"] > 0).sum()),
+                   saturated_centers=int(
+                       counters["l%d_saturated_centers" % level]),
+                   cell_overflow_sources=int(
+                       counters["l%d_cell_overflow_sources" % level]),
+                   nonzero_rows=int((out3.abs().sum(1) > 0).sum()),
+                   k4_equals_k3=True)
+        for name, fn, plain, args, fused in (
+            ("K3", edge_tail.edge_tail_max,
+             edge_tail.edge_tail_max_reference, k3, False),
+            ("K4", edge_tail.fused_edge_max,
+             edge_tail.fused_edge_max_reference, k4, True),
+        ):
+            ms = time_ms(lambda: fn(**args), runs=20)
+            plain_ms = time_ms(lambda: plain(**args), runs=10, warmup=1)
+            bound_ms, bound_by, flops, n_bytes = tail_bound(args, fused)
+            row[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, flops=flops, bytes=n_bytes,
+                             max_abs_err=errs[name][0],
+                             max_rel_err=errs[name][1],
+                             max_bf16_ulps=errs[name][2])
+        levels["L%d" % level] = row
+        print("phase 8: L%d K=%d S=%d valid slots %d, saturated centers %d;"
+              " K3 %.3f ms (plain %.3f, bound %.4f %s, err %.3g, %.3g ulps);"
+              " K4 %.3f ms (plain %.3f, bound %.4f %s, err %.3g, %.3g ulps);"
+              " K4 == K3 bitwise"
+              % (level, row["K"], row["S"], row["valid_slots"],
+                 row["saturated_centers"], row["K3"]["ms"],
+                 row["K3"]["plain_ms"], row["K3"]["bound_ms"],
+                 row["K3"]["bound_by"], row["K3"]["max_rel_err"],
+                 row["K3"]["max_bf16_ulps"],
+                 row["K4"]["ms"], row["K4"]["plain_ms"],
+                 row["K4"]["bound_ms"], row["K4"]["bound_by"],
+                 row["K4"]["max_rel_err"], row["K4"]["max_bf16_ulps"]),
+              flush=True)
+    report["edge_levels"] = levels
+
+    # f32 at a small size: the first 2048 centers of the level-1 call
+    k3, k4 = tail_args(calls[1], torch.float32, centers=2048)
+    ref = edge_tail.edge_tail_max_reference(**k3)
+    small = {}
+    for name, out in (("K3", edge_tail.edge_tail_max(**k3)),
+                      ("K4", edge_tail.fused_edge_max(**k4))):
+        torch.cuda.synchronize()
+        small[name] = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        check(small[name] <= 1e-4, "f32 %s vs f32 plain: %.3g > 1e-4"
+              % (name, small[name]))
+    report["edge_small_f32"] = dict(K=2048, **small)
+    print("phase 8: small K=2048 f32 K3 vs plain %.3g, K4 vs plain %.3g "
+          "(tol 1e-4)" % (small["K3"], small["K4"]), flush=True)
+    return pipe
+
+
+def edge_serving_phase(report, device, pipe):
+    """Phase 9: full-width car_auto_T3 serving on the edge-list path
+    (8 frames), then 2 frames with slab="l1"."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import select_input_features
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    frames = [synthetic_lidar_frame(seed=i, points_per_beam=380)[0]
+              for i in range(FRAMES)]
+    out = {}
+    for mode, n_frames, want in (
+        ("edges", FRAMES, {"edge_tail_max": 4, "slab_edge_max": 0}),
+        ("l1", L1_FRAMES, {"edge_tail_max": 1, "slab_edge_max": 3}),
+    ):
+        if mode == "l1":
+            pipe = edge_pipeline(device, slab="l1")
+            pipe.run_frame(synthetic_lidar_frame(seed=100,
+                                                 points_per_beam=380)[0])
+        pipe.time_dict.clear()
+        buckets, detections = {}, []
+        reset_counts()
+        t_all = time.perf_counter()
+        for pts in frames[:n_frames]:
+            before = dict(pipe.time_dict)
+            cls, boxes, scores, _ = pipe.run_frame(pts)
+            for key, val in pipe.time_dict.items():
+                buckets.setdefault(key, []).append(
+                    1e3 * (val - before.get(key, 0.0)))
+            check(boxes.ndim == 2 and boxes.shape[1:] == (7,),
+                  "boxes shape %s" % (boxes.shape,))
+            check(len(cls) == len(scores) == len(boxes), "ragged detections")
+            check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+                  "non-finite detections")
+            detections.append(int(len(cls)))
+        wall = time.perf_counter() - t_all
+        counts = read_counts()
+        for name, per_frame in want.items():
+            check(counts[name] == per_frame * n_frames,
+                  "%s: %s launched %d times over %d frames, want %d"
+                  % (mode, name, counts[name], n_frames,
+                     per_frame * n_frames))
+        check(counts["fused_edge_max"] == counts[
+            "slab_edge_max_backward"] == 0, "%s: unexpected launches %s"
+              % (mode, counts))
+        # capacity truncation of each frame's graph (no kernel runs)
+        saturation = []
+        for pts in frames[:n_frames]:
+            packed = torch.from_numpy(db.pack_points(
+                pts.xyz, select_input_features(pts.attr, "i"), NUM_POINTS
+            )).to(device)
+            _, c = db.build_padded_graph(*db.unpack_points(packed),
+                                         pipe.device_spec,
+                                         return_counters=True)
+            saturation.append({k: int(v) for k, v in c.items()})
+        med = {k: statistics.median(v) for k, v in buckets.items()}
+        out[mode] = dict(frames=n_frames, launches=counts,
+                         detections=detections, median_ms=med,
+                         ms_per_frame=buckets,
+                         wall_ms_per_frame=1e3 * wall / n_frames,
+                         counters=saturation)
+        print("phase 9: %s, %d frames, launches %s, median ms per frame %s,"
+              " detections %s, wall %.1f ms/frame; saturated centers per "
+              "frame L0 %s L1 %s"
+              % (mode, n_frames, counts,
+                 {k: round(v, 3) for k, v in med.items()}, detections,
+                 1e3 * wall / n_frames,
+                 [c.get("l0_saturated_centers") for c in saturation],
+                 [c.get("l1_saturated_centers") for c in saturation]),
+              flush=True)
+    report["edge_serving"] = out
+    return out
+
+
+def edge_cpu_parity_phase(report, device):
+    """Phase 10: the edge-list model on the card vs on the CPU, small
+    frame, f32, same parameters."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    cfg = configs.model_config("Car", T=3)
+    spec = edge_spec(cfg, num_points=2048, num_keypoints=1024)
+    pts, _ = synthetic_lidar_frame(seed=5, n_beams=32, points_per_beam=64)
+    outs = []
+    params = None
+    for dev in (device, torch.device("cpu")):
+        pipe = InferencePipeline(
+            cfg, params=params, device_spec=spec, compute_dtype="float32",
+            seed=1, device=dev, slab=False,
+        )
+        if params is None:
+            params = params_from_jax(params_to_numpy(pipe.params), "cpu")
+        packed = torch.from_numpy(db.pack_points(
+            pts.xyz, pts.attr[:, :1], spec.num_points
+        )).to(dev)
+        with torch.inference_mode():
+            graph = db.build_padded_graph(*db.unpack_points(packed),
+                                          pipe.device_spec)
+            logits, enc = pipe.model.apply(pipe.params, graph)
+        outs.append([t.cpu().numpy() for t in (
+            graph.edges_src[0], graph.edges_src[1], graph.edges_dst[0],
+            graph.edges_dst[1], graph.keypoint_indices[0],
+            torch.softmax(logits, -1), enc,
+        )])
+    g, c = outs
+    for i, name in enumerate(("edges_src[0]", "edges_src[1]",
+                              "edges_dst[0]", "edges_dst[1]",
+                              "keypoint_indices[0]")):
+        check(np.array_equal(g[i], c[i]), "graph %s differs" % name)
+    # f32 on both devices, other summation orders (no TF32): 1e-3
+    dp = float(np.abs(g[5] - c[5]).max())
+    de = float(np.abs(g[6] - c[6]).max())
+    check(dp <= 1e-3 and de <= 1e-3,
+          "cuda vs cpu edge-list model: probs %.3g enc %.3g > 1e-3"
+          % (dp, de))
+    report["edge_cpu_parity"] = dict(probs_max_abs=dp, enc_max_abs=de,
+                                     valid_edges=[int((g[i] < n).sum())
+                                                  for i, n in ((0, 2048),
+                                                               (1, 1024))])
+    print("phase 10: cuda vs cpu edge-list model (f32, 1024 keypoints): "
+          "edge lists bitwise equal, probs %.3g enc %.3g (tol 1e-3)"
+          % (dp, de), flush=True)
+
+
 def main():
     import torch
 
@@ -827,7 +1208,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
-        from pointgnn_tpu_torch.nn import slab
+        from pointgnn_tpu_torch.nn import cuda_build
     except ImportError as exc:
         print("chip_smoke: the pointgnn_tpu_torch package is missing "
               "beside this script (%s)" % exc, file=sys.stderr)
@@ -840,7 +1221,7 @@ def main():
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    built = slab.build_kernels()
+    built = cuda_build.build_kernels()
     report["build"] = {}
     for name, (path, build_s, log) in built.items():
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -859,6 +1240,9 @@ def main():
     backward_kernel_phase(report, device)
     train_k1, train_k2 = train_phase(report, device)
     grad_parity_phase(report, device)
+    edge_pipe = edge_kernel_phase(report, device)
+    edge = edge_serving_phase(report, device, edge_pipe)
+    edge_cpu_parity_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -880,10 +1264,13 @@ def main():
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:573",
-        # serving (8 frames) and training (3 steps), each counted from 0
-        "launches": serving_launches + train_k1,
-        "launches_by_path": {"serving": serving_launches,
-                             "training": train_k1},
+        # slab serving (8 frames), training (3 steps) and "l1" serving
+        # (2 frames), each counted from 0
+        "launches": (serving_launches + train_k1
+                     + edge["l1"]["launches"]["slab_edge_max"]),
+        "launches_by_path": {
+            "serving": serving_launches, "training": train_k1,
+            "l1_serving": edge["l1"]["launches"]["slab_edge_max"]},
         "max_abs_err": max(lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]),
         # per serving frame (bf16): 1 level-0 + 3 level-1 launches
         "ms": per_frame(lv, "ms"),
@@ -912,6 +1299,38 @@ def main():
         "per_launch": {key: {k: tl[key][k] for k in keys}
                        for key in ("L0", "L1")},
     }]
+    el = report["edge_levels"]
+    tail_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    for name, source, replaces, launches in (
+        ("edge_tail_max", "edge_tail_max.cu", ":220", {
+            "edge_serving": edge["edges"]["launches"]["edge_tail_max"],
+            "l1_serving": edge["l1"]["launches"]["edge_tail_max"]}),
+        # no serving path reaches K4, in the JAX package as here
+        ("fused_edge_max", "fused_edge_max.cu", ":103", {}),
+    ):
+        key = "K3" if name == "edge_tail_max" else "K4"
+        lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])
+                for lvl in ("L0", "L1")}
+        share = {"L0": lv_k["L0"]["bound_ms"],
+                 "L1": n_l1 * lv_k["L1"]["bound_ms"]}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pointgnn_tpu_torch/csrc/" + source,
+            "replaces": "pointgnn_tpu/nn/pallas_kernels.py" + replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(lv_k["L0"]["max_abs_err"],
+                               lv_k["L1"]["max_abs_err"]),
+            # per edge-list serving frame (bf16): 1 level-0 + 3 level-1
+            "ms": per_frame(lv_k, "ms"),
+            "plain_ms": per_frame(lv_k, "plain_ms"),
+            "bound_ms": per_frame(lv_k, "bound_ms"),
+            "bound_by": lv_k[max(share, key=share.get)]["bound_by"],
+            "library_ms": None,
+            "per_launch": {lvl: {k: lv_k[lvl][k] for k in tail_keys + (
+                "valid_slots",)} for lvl in ("L0", "L1")},
+        })
     report["kernels"] = kernels
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

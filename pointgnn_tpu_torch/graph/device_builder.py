@@ -1,18 +1,22 @@
-"""On-device two-level graph construction, slab subset (torch).
+"""On-device two-level graph construction (torch).
 
-Counterpart of :mod:`pointgnn_tpu.graph.device_builder` for the
-production serving and training graphs: voxel keypoint selection
-(deterministic for serving, randomized per step for training), then
-both slab levels (cell-sorted rows plus per-cell row offsets), so the
+Counterpart of :mod:`pointgnn_tpu.graph.device_builder`: voxel keypoint
+selection (deterministic for serving, randomized per step for training),
+then per level either a capped radius edge list (:func:`radius_edges`)
+or slab metadata (cell-sorted rows plus per-cell row offsets, so the
 ``slab_edge_max`` kernel walks the exact uncapped radius graph with no
-edge list.  The integer metadata is bitwise equal to the JAX builder's:
+edge list).  The integer metadata is bitwise equal to the JAX
+builder's:
 
 - every sort is stable (``torch.argsort(stable=True)``), as
   ``jnp.argsort`` is;
 - ``jnp.nonzero(size=K, fill_value=P)`` becomes a cumsum compaction
   with a static output size (no ``torch.nonzero`` and its host sync);
-- the ``mode="drop"`` scatter of ``_cell_offsets`` scatters the
-  non-first rows into one extra slot that is then cut off.
+- the ``mode="drop"`` scatter of ``_cell_offsets`` and the dropped
+  overflow slot of the radius cell tables scatter into one extra slot
+  that is then cut off;
+- ``jax.lax.top_k`` becomes ``torch.topk(sorted=True)`` on the same
+  slot-ranked keys (the kept keys are distinct, so the order is too).
 """
 
 from typing import NamedTuple, Tuple
@@ -28,14 +32,17 @@ _DX, _DY, _DZ = 1024, 128, 1024
 
 class LevelSpec(NamedTuple):
     radius: float
-    cell_cap: int        # edge-list path only (not ported)
-    per_center_cap: int  # edge-list path only (not ported)
-    grid_xz: int = 256
+    cell_cap: int        # edge list: max candidates per grid cell (M)
+    per_center_cap: int  # edge list: max neighbors kept per center (S)
+    grid_xz: int = 256   # edge list: dense 2D grid extent (cells/side)
     # slab grid: cell size decoupled from the radius; the kernel walks
     # +/- slab_halo cell columns around each center block
     slab_cell: float = 0.0
     slab_grid: int = 0
     slab_halo: int = 1
+    # JAX compacts with approx_max_k on the TPU when set; off the TPU
+    # (and always here) the compaction is the exact top-k
+    approx_topk: bool = False
 
 
 class DeviceGraphSpec(NamedTuple):
@@ -58,6 +65,7 @@ def spec_from_config(
     cell_caps: Tuple[int, int] = (96, 192),
     per_center_caps: Tuple[int, int] = (32, 256),
     world_extent: float = 130.0,
+    approx_topk: bool = False,
 ) -> DeviceGraphSpec:
     """Derive the spec from a reference-format model config (the same
     derivation as the JAX ``spec_from_config``)."""
@@ -80,6 +88,7 @@ def spec_from_config(
         return LevelSpec(
             r, cell_cap, per_center_cap, grid_xz=grid,
             slab_cell=slab_cell, slab_grid=slab_grid, slab_halo=slab_halo,
+            approx_topk=approx_topk,
         )
 
     return DeviceGraphSpec(
@@ -176,6 +185,131 @@ def voxel_select(xyz, mask, voxel_size, num_keypoints, rnd=None):
     return torch.where(kp_mask, indices, torch.zeros_like(indices)), kp_mask
 
 
+def radius_edges(
+    src_xyz, src_mask, ctr_xyz, ctr_mask, level: LevelSpec,
+    return_counts=False,
+):
+    """Fixed-radius neighbors, grouped by center with sentinel padding.
+
+    Returns ``(edges_src [K*S], edges_dst [K*S])`` int32 in the
+    SRC-sentinel layout: ``dst`` is always the owning center (so the list
+    is dst-sorted) and padded slots carry ``src == num_sources``.  With
+    ``return_counts`` also a dict of int32 scalars:
+    ``saturated_centers`` (centers with more than ``per_center_cap``
+    in-radius candidates, whose neighbor set is truncated) and
+    ``cell_overflow_sources`` (valid sources dropped from cells holding
+    more than ``cell_cap``).
+
+    The JAX builder's steps, in its order: sources go into a dense 2D
+    (x, z) grid of ``cell_cap``-slot cell tables (rank within a cell from
+    one stable sort and a running max of group starts; overflowing and
+    invalid sources land in one dropped slot); each center gathers its
+    3x3 neighboring cell tables and tests ``dx*dx + dy*dy + dz*dz <=
+    r*r`` in float32, in that order; the first ``per_center_cap`` hits in
+    slot order are kept by a sorted top-k on a slot-ranked key.
+    ``level.approx_topk`` (``approx_max_k`` on a TPU) runs the exact
+    top-k, as JAX does off the TPU.
+    """
+    n = src_xyz.shape[0]
+    k = ctr_xyz.shape[0]
+    r, m, s = level.radius, level.cell_cap, level.per_center_cap
+    g = level.grid_xz
+    num_cells = g * g
+    dev = src_xyz.device
+    src_mask = src_mask.to(torch.bool)
+    ctr_mask = ctr_mask.to(torch.bool)
+    origin = _masked_min(src_xyz, src_mask)
+
+    def cell_xz(xyz):
+        cx = torch.floor((xyz[:, 0] - origin[0]) / r).to(torch.int32)
+        cz = torch.floor((xyz[:, 2] - origin[2]) / r).to(torch.int32)
+        return torch.clamp(cx, 0, g - 1), torch.clamp(cz, 0, g - 1)
+
+    sx, sz = cell_xz(src_xyz)
+    src_cell = torch.where(src_mask, sx * g + sz,
+                           torch.full_like(sx, num_cells)).to(torch.int64)
+
+    # within-cell rank from one stable sort of the source cells
+    order = torch.argsort(src_cell, stable=True)
+    sorted_cell = src_cell[order]
+    first_of_group = torch.ones(n, dtype=torch.bool, device=dev)
+    first_of_group[1:] = sorted_cell[1:] != sorted_cell[:-1]
+    ar = torch.arange(n, device=dev)
+    group_start = torch.where(first_of_group, ar, torch.zeros_like(ar))
+    group_start = torch.cummax(group_start, dim=0).values
+    rank = ar - group_start
+
+    # dense cell tables [num_cells, m]; overflow/invalid -> dropped slot
+    in_table = (sorted_cell < num_cells) & (rank < m)
+    table_slot = torch.where(in_table, sorted_cell * m + rank,
+                             torch.full_like(rank, num_cells * m))
+
+    def to_table(vals, fill):
+        t = torch.full((num_cells * m + 1,), fill, dtype=vals.dtype,
+                       device=dev)
+        t.scatter_(0, table_slot, vals)
+        return t[:-1].reshape(num_cells, m)
+
+    inf = float("inf")
+    tbl_x = to_table(src_xyz[order, 0], inf)
+    tbl_y = to_table(src_xyz[order, 1], inf)
+    tbl_z = to_table(src_xyz[order, 2], inf)
+    tbl_i = to_table(order.to(torch.int32), 0)
+
+    # 3x3 neighbor cells per center (x-major) -> row-gather the tables
+    cxc, czc = cell_xz(ctr_xyz)
+    d = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    off_x = d.repeat_interleave(3)
+    off_z = d.repeat(3)
+    ncx = cxc[:, None] + off_x[None, :]
+    ncz = czc[:, None] + off_z[None, :]
+    in_grid = (ncx >= 0) & (ncx < g) & (ncz >= 0) & (ncz < g)
+    nc = torch.where(
+        in_grid,
+        torch.clamp(ncx, 0, g - 1) * g + torch.clamp(ncz, 0, g - 1),
+        torch.zeros_like(ncx),
+    ).to(torch.int64)
+    width = 9 * m
+    cand_x = tbl_x[nc].reshape(k, width)
+    cand_y = tbl_y[nc].reshape(k, width)
+    cand_z = tbl_z[nc].reshape(k, width)
+    cand_i = tbl_i[nc].reshape(k, width)
+
+    dx = cand_x - ctr_xyz[:, 0:1]
+    dy = cand_y - ctr_xyz[:, 1:2]
+    dz = cand_z - ctr_xyz[:, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz  # inf-filled slots fail the test
+    r2 = torch.tensor(float(np.float32(float(r) * float(r))),
+                      dtype=torch.float32, device=dev)
+    ok = (
+        (d2 <= r2)
+        & ctr_mask[:, None]
+        & in_grid.repeat_interleave(m, dim=1)
+    )
+
+    # compact to the first s hits per center: top-k on a slot-ranked key
+    slot_rank = width - torch.arange(width, dtype=torch.int32, device=dev)
+    key = torch.where(ok, slot_rank[None, :],
+                      torch.zeros((), dtype=torch.int32, device=dev))
+    topv, topi = torch.topk(key, s, dim=1, sorted=True)
+    picked = torch.gather(cand_i, 1, topi)
+    # invalid slots become the sentinel n whatever topk picked among the
+    # zero keys; dst is always the owning center
+    edges_src = torch.where(topv > 0, picked,
+                            torch.full_like(picked, n)).reshape(-1)
+    edges_dst = torch.arange(k, dtype=torch.int32, device=dev)[
+        :, None].expand(k, s).reshape(-1)
+    if return_counts:
+        counts = {
+            "saturated_centers": (ok.sum(dim=1) > s).sum().to(torch.int32),
+            "cell_overflow_sources": (
+                (sorted_cell < num_cells) & (rank >= m)
+            ).sum().to(torch.int32),
+        }
+        return edges_src, edges_dst, counts
+    return edges_src, edges_dst
+
+
 def slab_grid_of(level: LevelSpec):
     """(cell_size, grid) of the level's slab grid."""
     cell = level.slab_cell or level.radius
@@ -260,51 +394,94 @@ def build_padded_graph(
     points_mask,           # [P] bool/float
     spec: DeviceGraphSpec,
     rnd=None,
-) -> PaddedGraph:
-    """Two-level slab graph (both ``slab_level0`` and ``slab_level1``).
+    return_counters=False,
+):
+    """Two-level graph: per level a capped radius edge list or, where
+    the spec's slab flag is set, slab metadata (the edge list is then a
+    1-element dummy).
 
-    Raw points are sorted into level-0 cell order; keypoints into
-    level-1 cell-major, level-0 cell-minor order.  ``rnd`` randomizes
-    the keypoint selection for training (see :func:`voxel_select`).
-    Other flag combinations are the edge-list paths, not ported yet."""
-    if not (spec.slab_level0 and spec.slab_level1):
-        raise NotImplementedError(
-            "only the two-level slab graph is ported "
-            "(spec.slab_level0 and spec.slab_level1 must be True)"
-        )
+    With ``slab_level0`` raw points are sorted into level-0 cell order;
+    with ``slab_level1`` keypoints are sorted into level-1 cell-major
+    order (level-0 cell minor when ``slab_level0`` is set too), and the
+    level-0 edges are built on that order.  ``rnd`` randomizes the
+    keypoint selection for training (see :func:`voxel_select`).
+
+    With ``return_counters`` also returns a dict of int32 scalars:
+    ``voxels_occupied``, ``keypoints_dropped`` and, for each edge-list
+    level ``i``, ``l{i}_saturated_centers`` and
+    ``l{i}_cell_overflow_sources`` (see :func:`radius_edges`)."""
     dev = points_xyz.device
+    counters = {}
     points_mask = points_mask.to(torch.bool)
     kp_idx, kp_mask = voxel_select(
         points_xyz, points_mask, spec.voxel_size, spec.num_keypoints, rnd
     )
+    if return_counters:
+        # occupied voxels on the grid the selection used
+        keys = _cell_keys(
+            points_xyz, points_mask, spec.voxel_size,
+            _voxel_origin(points_xyz, points_mask, spec.voxel_size,
+                          None if rnd is None else rnd[0]),
+        )
+        sk = torch.sort(keys).values
+        first = torch.ones(sk.shape[0], dtype=torch.bool, device=dev)
+        first[1:] = sk[1:] != sk[:-1]
+        occupied = (first & (sk < _DX * _DY * _DZ)).sum().to(torch.int32)
+        counters["voxels_occupied"] = occupied
+        counters["keypoints_dropped"] = torch.clamp(
+            occupied - spec.num_keypoints, min=0)
     kp_xyz = torch.where(
         kp_mask[:, None], points_xyz[kp_idx], torch.zeros((), device=dev)
     )
-    # level 0: sort raw points by their level-0 cell
-    p_cell, p_origin = grid_cells(points_xyz, points_mask, spec.level0)
-    p_order = torch.argsort(p_cell, stable=True)
-    points_xyz = points_xyz[p_order]
-    features = features[p_order]
-    points_mask = points_mask[p_order]
-    slab0_offsets = _cell_offsets(
-        p_cell[p_order], slab_grid_of(spec.level0)[1] ** 2
-    )
-    kp_idx = inverse_permutation(p_order)[kp_idx]
-    kp_fine, _ = grid_cells(kp_xyz, kp_mask, spec.level0, p_origin)
-    # level 1: keypoints in level-1 cell-major, level-0 cell-minor order
-    order, slab_center_cell, slab_offsets = slab_metadata(
-        kp_xyz, kp_mask, spec.level1, secondary=kp_fine
-    )
-    kp_idx = kp_idx[order]
-    kp_mask = kp_mask[order]
-    kp_xyz = kp_xyz[order]
-    slab0_center_cell = kp_fine[order]
+    slab_offsets = slab_center_cell = None
+    slab0_offsets = slab0_center_cell = None
+    kp_fine = None
+    if spec.slab_level0:
+        # level 0: sort raw points by their level-0 cell
+        p_cell, p_origin = grid_cells(points_xyz, points_mask, spec.level0)
+        p_order = torch.argsort(p_cell, stable=True)
+        points_xyz = points_xyz[p_order]
+        features = features[p_order]
+        points_mask = points_mask[p_order]
+        slab0_offsets = _cell_offsets(
+            p_cell[p_order], slab_grid_of(spec.level0)[1] ** 2
+        )
+        kp_idx = inverse_permutation(p_order)[kp_idx]
+        kp_fine, _ = grid_cells(kp_xyz, kp_mask, spec.level0, p_origin)
+    if spec.slab_level1:
+        # level 1: keypoints in level-1 cell-major (level-0 cell-minor)
+        # order; every later per-keypoint array follows it
+        order, slab_center_cell, slab_offsets = slab_metadata(
+            kp_xyz, kp_mask, spec.level1, secondary=kp_fine
+        )
+        kp_idx = kp_idx[order]
+        kp_mask = kp_mask[order]
+        kp_xyz = kp_xyz[order]
+        if kp_fine is not None:
+            slab0_center_cell = kp_fine[order]
+    elif kp_fine is not None:
+        slab0_center_cell = kp_fine
+
+    dummy = torch.zeros((1,), dtype=torch.int32, device=dev)
+    edges = []
+    for i, (slab_level, src, smask, level) in enumerate((
+        (spec.slab_level0, points_xyz, points_mask, spec.level0),
+        (spec.slab_level1, kp_xyz, kp_mask, spec.level1),
+    )):
+        if slab_level:  # exact, uncapped: nothing to saturate
+            edges.append((dummy, dummy))
+            continue
+        res = radius_edges(src, smask, kp_xyz, kp_mask, level,
+                           return_counts=return_counters)
+        if return_counters:
+            for key, val in res[2].items():
+                counters["l%d_%s" % (i, key)] = val
+        edges.append(res[:2])
 
     k = spec.num_keypoints
     maskf = points_mask.to(torch.float32)
     kp_maskf = kp_mask.to(torch.float32)
-    dummy = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return PaddedGraph(
+    graph = PaddedGraph(
         features=features * maskf[:, None],
         vertex_xyz=(points_xyz * maskf[:, None], kp_xyz, kp_xyz),
         vertex_mask=(maskf, kp_maskf, kp_maskf),
@@ -312,8 +489,8 @@ def build_padded_graph(
             kp_idx.to(torch.int32),
             torch.arange(k, dtype=torch.int32, device=dev),
         ),
-        edges_src=(dummy, dummy),
-        edges_dst=(dummy, dummy),
+        edges_src=(edges[0][0], edges[1][0]),
+        edges_dst=(edges[0][1], edges[1][1]),
         cls_labels=torch.zeros((k,), dtype=torch.int32, device=dev),
         encoded_boxes=torch.zeros((k, 7), dtype=torch.float32, device=dev),
         valid_boxes=torch.zeros((k,), dtype=torch.float32, device=dev),
@@ -322,6 +499,9 @@ def build_padded_graph(
         slab0_offsets=slab0_offsets,
         slab0_center_cell=slab0_center_cell,
     )
+    if return_counters:
+        return graph, counters
+    return graph
 
 
 def host_overflow_stats(xyz: np.ndarray, spec: DeviceGraphSpec):

@@ -1,13 +1,16 @@
-"""Slab serving pipeline: points -> detections -> KITTI text.
+"""On-device serving pipeline: points -> detections -> KITTI text.
 
-Counterpart of the on-device slab path of
-:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True,
-slab=True``).  Per frame the host packs the points into one array; the
-device unpacks it, builds the two-level slab graph, runs the network
-(whose edge work is ``slab_edge_max``), softmax, the hypothesis mask,
-top-k and the box decode; the host then folds the vertical classes and
-runs merge-NMS.  Stage times go into ``time_dict`` under the JAX
-pipeline's bucket names.
+Counterpart of the on-device graph paths of
+:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True``):
+``slab=True`` (both levels through ``slab_edge_max``), ``slab="l1"``
+(level 0 on the capped edge list through ``edge_tail_max``, level 1
+through ``slab_edge_max``) and ``slab=False`` with ``pallas_tail`` (both
+levels on capped edge lists through ``edge_tail_max``).  Per frame the
+host packs the points into one array; the device unpacks it, builds the
+two-level graph, runs the network, softmax, the hypothesis mask, top-k
+and the box decode; the host then folds the vertical classes and runs
+merge-NMS.  Stage times go into ``time_dict`` under the JAX pipeline's
+bucket names.
 """
 
 import time
@@ -151,8 +154,18 @@ def format_kitti_lines(pred_labels: List[Tuple]) -> str:
 
 
 class InferencePipeline:
-    """Drives one config + parameter set over frames, on the slab
-    on-device graph path."""
+    """Drives one config + parameter set over frames, on the on-device
+    graph path.
+
+    ``slab`` is ``True`` (both levels), ``"l1"`` (level 1 only),
+    ``False`` or ``"auto"``; ``pallas_tail`` is a bool or ``"auto"``.
+    They resolve as in the JAX pipeline, except that ``"auto"`` means on
+    for both, on the card and on the CPU (where the kernels' plain
+    versions run), so the default is the slab path.  The device spec's
+    slab flags are set both ways: a spec passed in with flags set has
+    them cleared where slab resolves off.  A level that is neither slab
+    nor edge-list tail would need the generic segment path, which is
+    not ported: the constructor raises."""
 
     def __init__(
         self,
@@ -165,6 +178,8 @@ class InferencePipeline:
         use_box_merge: bool = True,
         use_box_score: bool = True,
         max_hypotheses: int = 4096,
+        pallas_tail="auto",
+        slab="auto",
     ):
         self.device = resolve_device(device)
         self.config = config
@@ -182,16 +197,42 @@ class InferencePipeline:
         self.enc_len = encodings.get_encoding_len(
             config["box_encoding_method"]
         )
+        fast_ok = all(
+            lc.get("kwargs", {}).get(key, "NONE") == "NONE"
+            for lc in config["model_kwargs"]["layer_configs"][:-1]
+            for key in ("point_MLP_normalization_type",
+                        "edge_MLP_normalization_type")
+        )
+        if pallas_tail == "auto":
+            pallas_tail = fast_ok
+        self.pallas_tail = bool(pallas_tail)
+        if slab == "auto":
+            slab = self.pallas_tail and fast_ok
+        self.slab = "l1" if slab == "l1" else bool(slab)
+        if self.slab is not True and not self.pallas_tail:
+            raise NotImplementedError(
+                "slab=%r with pallas_tail=False needs the generic segment "
+                "path (nn/segment.py, chunked_aggregate), which is not "
+                "ported" % (slab,)
+            )
         spec = device_spec or db.spec_from_config(config)
-        self.device_spec = spec._replace(slab_level1=True, slab_level0=True)
+        # two-way: also clear flags set on a spec passed in
+        self.device_spec = spec._replace(
+            slab_level1=bool(self.slab),
+            slab_level0=bool(self.slab) and self.slab != "l1",
+        )
         self.compute_dtype = compute_dtype
         self.model = get_model(config["model_name"])(
             num_classes=self.num_classes,
             box_encoding_len=self.enc_len,
             mode="test",
             compute_dtype=compute_dtype,
-            slab_level1=db.slab_kernel_wiring(self.device_spec.level1),
-            slab_level0=db.slab_kernel_wiring(self.device_spec.level0),
+            slab_level1=(db.slab_kernel_wiring(self.device_spec.level1)
+                         if self.device_spec.slab_level1 else None),
+            slab_level0=(db.slab_kernel_wiring(self.device_spec.level0)
+                         if self.device_spec.slab_level0 else None),
+            edge_sentinel="src",
+            pallas_tail=self.pallas_tail,
             **config["model_kwargs"],
         )
         self.input_features = config["input_features"]

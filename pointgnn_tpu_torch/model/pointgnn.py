@@ -1,6 +1,7 @@
 """Config-driven Point-GNN model (counterpart of
 :class:`pointgnn_tpu.model.pointgnn.PointGNN`): serving (``mode="test"``)
-and training (``mode="train"``: the slab layers become differentiable
+on slab graphs or on device-built edge lists (``pallas_tail``), and
+training (``mode="train"``: the slab layers become differentiable
 through ``slab_edge_max_train``, and :meth:`PointGNN.loss` gives the
 loss dict).
 
@@ -49,7 +50,8 @@ def _init_mlp(rng, din, widths, device):
 
 
 class PointGNN:
-    """Multi-layer local graph model over a two-level slab graph."""
+    """Multi-layer local graph model over a two-level graph (slab
+    metadata or blocked edge lists per level)."""
 
     def __init__(
         self,
@@ -62,6 +64,8 @@ class PointGNN:
         slab_level0: Optional[dict] = None,
         regularizer_type: Optional[str] = None,
         regularizer_kwargs: Optional[dict] = None,
+        edge_sentinel: str = "dst",
+        pallas_tail: bool = False,
     ):
         if mode not in ("train", "test"):
             raise NotImplementedError("mode %r is not ported" % mode)
@@ -87,6 +91,10 @@ class PointGNN:
         self.compute_dtype = compute_dtype
         self.slab_level1 = slab_level1
         self.slab_level0 = slab_level0
+        # padding convention of the edge lists: "src" for device-built
+        # graphs; the edge-list tail (inference only) needs it
+        self.edge_sentinel = edge_sentinel
+        self.pallas_tail = pallas_tail and mode != "train"
         pred_cfg = self.layer_configs[-1]
         widths = predictor_widths(pred_cfg["type"])
         if widths is None:
@@ -165,10 +173,17 @@ class PointGNN:
         features = graph.features
         for cfg, layer in zip(self.layer_configs[:-1], self._layers):
             g = cfg["graph_level"]
-            kw = dict(cfg["kwargs"], compute_dtype=self.compute_dtype)
+            kw = dict(cfg["kwargs"], compute_dtype=self.compute_dtype,
+                      edges_src=graph.edges_src[g],
+                      edges_dst=graph.edges_dst[g],
+                      edge_sentinel=self.edge_sentinel,
+                      pallas_tail=self.pallas_tail)
             p = params[cfg["scope"]]
+            # slab kwargs only where the graph carries that level's slab
+            # metadata
             if isinstance(layer, PointSetPooling):
-                if self.slab_level0 is not None and g == 0:
+                if (self.slab_level0 is not None and g == 0
+                        and graph.slab0_offsets is not None):
                     kw["slab"] = dict(
                         self.slab_level0,
                         offsets=graph.slab0_offsets,
@@ -180,7 +195,8 @@ class PointGNN:
                     point_mask=graph.vertex_mask[g], **kw,
                 )
             else:
-                if self.slab_level1 is not None and g == 1:
+                if (self.slab_level1 is not None and g == 1
+                        and graph.slab_offsets is not None):
                     kw["slab"] = dict(
                         self.slab_level1,
                         offsets=graph.slab_offsets,

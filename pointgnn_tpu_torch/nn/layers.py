@@ -1,39 +1,75 @@
-"""Graph layers in slab mode (counterpart of :mod:`pointgnn_tpu.nn.layers`).
+"""Graph layers (counterpart of :mod:`pointgnn_tpu.nn.layers`), on the
+slab and the edge-list inference paths.
 
-- :class:`PointSetPooling` slab branch: raw points -> keypoint features
-  through ``slab_edge_max`` at level 0, then the output MLP.
+- :class:`PointSetPooling`: raw points -> keypoint features, through
+  ``slab_edge_max`` at level 0 (slab metadata given) or through
+  ``edge_tail_max`` over the level-0 edge list (``pallas_tail``), then
+  the output MLP.
 - :class:`GraphNetAutoCenter`: auto-offset MLP, the A/B fold of the
-  first edge-MLP layer, ``slab_edge_max`` at level 1, the update MLP and
-  the residual.
+  first edge-MLP layer, ``slab_edge_max`` or ``edge_tail_max`` at level
+  1, the update MLP and the residual.
 - :class:`ClassAwarePredictor`: shared class head + per-class box heads.
 
 The fold: ``concat(feat_j, x_j - x_k) @ W0 + b0 == A[j] - B[k]`` with
-``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernel
-only gathers rows of A.  In training (``slab["train"]`` set) the layers
-call the differentiable ``slab_edge_max_train``: gradients reach the
-kernel's tail weights, and through the folded tables ``W0``, ``b0``, the
-features and the auto-offset MLP; the coordinates of the radius test get
-none.  The edge-list paths are not ported: a layer called without slab
-metadata raises.
+``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernels
+only gather rows of A.  The edge-list branch takes the device builder's
+blocked SRC-sentinel layout (``edge_sentinel="src"``: slot ``(c, s)``
+belongs to center ``c``, pad slots carry ``src == N``); the one row
+gather ``A[min(src, N-1)]`` is a torch op, as it was XLA's outside the
+TPU kernel.  In training (``slab["train"]`` set) the slab layers call
+the differentiable ``slab_edge_max_train``: gradients reach the kernel's
+tail weights, and through the folded tables ``W0``, ``b0``, the features
+and the auto-offset MLP; the coordinates of the radius test get none.
+The generic segment path (``pallas_tail=False`` without slab metadata)
+is not ported: such a call raises.
 """
 
 from typing import Optional
 
 import torch
 
-from pointgnn_tpu_torch.nn import mlp, slab as slab_ops
+from pointgnn_tpu_torch.nn import edge_tail, mlp, slab as slab_ops
 
 
-def _check_slab(slab, agg, norm, act):
-    if slab is None:
-        raise NotImplementedError(
-            "only the slab path is ported: the layer needs slab metadata"
-        )
-    if not (agg == "max" and norm == "NONE" and act == "ReLU"):
+def _fast_path_ok(agg, norm, act):
+    return agg == "max" and norm == "NONE" and act == "ReLU"
+
+
+def _check_slab(agg, norm, act):
+    if not _fast_path_ok(agg, norm, act):
         raise ValueError(
             "slab mode requires max aggregation, NONE normalization and "
             "ReLU activation; got agg=%r norm=%r act=%r" % (agg, norm, act)
         )
+
+
+def _check_tail(pallas_tail, edge_sentinel, edges_src, num_centers, agg,
+                norm, act):
+    """Raises unless the edge-list tail applies (the JAX layers'
+    condition): anything else would take the generic segment path."""
+    if (pallas_tail and edge_sentinel == "src" and edges_src is not None
+            and _fast_path_ok(agg, norm, act)
+            and edges_src.shape[0] % num_centers == 0):
+        return
+    raise NotImplementedError(
+        "only the slab and the edge-list tail (pallas_tail) paths are "
+        "ported; the generic segment path (nn/segment.py, "
+        "chunked_aggregate) is not: pass slab metadata, or pallas_tail="
+        "True with a device-built (edge_sentinel='src') edge list"
+    )
+
+
+def _tail_agg(tail, table_a, table_b, edges_src, compute_dtype):
+    """The per-center max of the edge MLP's tail over the blocked edge
+    list: gather ``A[min(src, N-1)]``, mask the sentinel slots, K3."""
+    cd = mlp.as_compute_dtype(compute_dtype) or torch.float32
+    n, k = table_a.shape[0], table_b.shape[0]
+    src = edges_src.to(torch.int64)
+    gathered = table_a.to(cd).index_select(0, torch.clamp(src, max=n - 1))
+    slot_valid = (src < n).reshape(k, -1).to(torch.float32)
+    weights = [(layer["w"], layer["b"]) for layer in tail]
+    return edge_tail.edge_tail_max(gathered, table_b.to(cd).contiguous(),
+                                   slot_valid, weights)
 
 
 def _xyz4(xyz, mask, sentinel):
@@ -86,32 +122,45 @@ class PointSetPooling:
         point_xyz,          # [P, 3]
         center_xyz,         # [K, 3]
         center_mask=None,   # [K]
-        point_mask=None,    # [P]
+        point_mask=None,    # [P] (slab mode only)
+        edges_src=None,     # [K*S] -> points (sentinel P on pad slots)
+        edges_dst=None,     # [K*S] -> centers (unused: slot c*S+s is c's)
         point_MLP_normalization_type="NONE",
         point_MLP_activation_type="ReLU",
         output_MLP_normalization_type="NONE",
         output_MLP_activation_type="ReLU",
         compute_dtype=None,
+        edge_sentinel="dst",
+        pallas_tail=False,
         slab=None,
         **_unused,
     ):
-        _check_slab(slab, self._agg_name, point_MLP_normalization_type,
-                    point_MLP_activation_type)
         num_src, num_centers = point_xyz.shape[0], center_xyz.shape[0]
         dev = point_xyz.device
         pp = params["point_mlp"]
         table_a, table_b = _folded_tables(
             pp[0], point_features, point_xyz, center_xyz, compute_dtype
         )
-        p_mask = (point_mask.to(torch.bool) if point_mask is not None
-                  else torch.ones(num_src, dtype=torch.bool, device=dev))
-        c_mask = (center_mask.to(torch.bool) if center_mask is not None
-                  else torch.ones(num_centers, dtype=torch.bool,
-                                  device=dev))
-        agg = _slab_agg(
-            pp[1:], table_a, _xyz4(point_xyz, p_mask, 1e6),
-            table_b, _xyz4(center_xyz, c_mask, -1e6), slab, compute_dtype,
-        ).to(point_features.dtype)
+        if slab is not None:
+            _check_slab(self._agg_name, point_MLP_normalization_type,
+                        point_MLP_activation_type)
+            p_mask = (point_mask.to(torch.bool) if point_mask is not None
+                      else torch.ones(num_src, dtype=torch.bool, device=dev))
+            c_mask = (center_mask.to(torch.bool) if center_mask is not None
+                      else torch.ones(num_centers, dtype=torch.bool,
+                                      device=dev))
+            agg = _slab_agg(
+                pp[1:], table_a, _xyz4(point_xyz, p_mask, 1e6),
+                table_b, _xyz4(center_xyz, c_mask, -1e6), slab,
+                compute_dtype,
+            )
+        else:
+            _check_tail(pallas_tail, edge_sentinel, edges_src, num_centers,
+                        self._agg_name, point_MLP_normalization_type,
+                        point_MLP_activation_type)
+            agg = _tail_agg(pp[1:], table_a, table_b, edges_src,
+                            compute_dtype)
+        agg = agg.to(point_features.dtype)
         out = mlp.apply_mlp(
             params["output_mlp"], agg, is_logits=False,
             normalization_type=output_MLP_normalization_type,
@@ -135,6 +184,8 @@ class GraphNetAutoCenter:
         vertex_features,    # [N, C]
         vertex_xyz,         # [N, 3]
         vertex_mask=None,   # [N]
+        edges_src=None,     # [N*S] -> vertices (sentinel N on pad slots)
+        edges_dst=None,     # [N*S] -> vertices (unused: slot c*S+s is c's)
         edge_MLP_normalization_type="NONE",
         edge_MLP_activation_type="ReLU",
         update_MLP_normalization_type="NONE",
@@ -143,12 +194,19 @@ class GraphNetAutoCenter:
         auto_offset_MLP_normalization_type="NONE",
         auto_offset_MLP_feature_activation_type="ReLU",
         compute_dtype=None,
+        edge_sentinel="dst",
+        pallas_tail=False,
         slab=None,
         **_unused,
     ):
-        _check_slab(slab, self._agg_name, edge_MLP_normalization_type,
-                    edge_MLP_activation_type)
         n = vertex_features.shape[0]
+        if slab is not None:
+            _check_slab(self._agg_name, edge_MLP_normalization_type,
+                        edge_MLP_activation_type)
+        else:
+            _check_tail(pallas_tail, edge_sentinel, edges_src, n,
+                        self._agg_name, edge_MLP_normalization_type,
+                        edge_MLP_activation_type)
         # auto-registration offsets shift only the center coordinates
         if auto_offset:
             offset = mlp.apply_mlp(
@@ -164,14 +222,21 @@ class GraphNetAutoCenter:
         table_a, table_b = _folded_tables(
             ep[0], vertex_features, vertex_xyz, shifted_xyz, compute_dtype
         )
-        maskb = (vertex_mask.to(torch.bool) if vertex_mask is not None
-                 else torch.ones(n, dtype=torch.bool,
-                                 device=vertex_xyz.device))
-        # the distance test uses the unshifted coordinates on both sides
-        agg = _slab_agg(
-            ep[1:], table_a, _xyz4(vertex_xyz, maskb, 1e6),
-            table_b, _xyz4(vertex_xyz, maskb, -1e6), slab, compute_dtype,
-        ).to(vertex_features.dtype)
+        if slab is not None:
+            maskb = (vertex_mask.to(torch.bool) if vertex_mask is not None
+                     else torch.ones(n, dtype=torch.bool,
+                                     device=vertex_xyz.device))
+            # the distance test uses the unshifted coordinates on both
+            # sides
+            agg = _slab_agg(
+                ep[1:], table_a, _xyz4(vertex_xyz, maskb, 1e6),
+                table_b, _xyz4(vertex_xyz, maskb, -1e6), slab,
+                compute_dtype,
+            )
+        else:
+            agg = _tail_agg(ep[1:], table_a, table_b, edges_src,
+                            compute_dtype)
+        agg = agg.to(vertex_features.dtype)
         update = mlp.apply_mlp(
             params["update_mlp"], agg, is_logits=True,
             normalization_type=update_MLP_normalization_type,

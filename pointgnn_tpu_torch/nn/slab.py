@@ -37,36 +37,17 @@ bit for bit.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from pointgnn_tpu_torch.nn import cuda_build
+from pointgnn_tpu_torch.nn.cuda_build import MAX_LAYERS
 from pointgnn_tpu_torch.nn.mlp import round_to
 
 NEG = -1e30
 DEFAULT_BLOCK_CENTERS = 32
-MAX_LAYERS = 8  # kMaxLayers in the CUDA source
-
-_CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-# kernel name -> its source; every source includes the shared header
-SOURCES = {
-    "slab_edge_max": "slab_edge_max.cu",
-    "slab_edge_max_bwd": "slab_edge_max_bwd.cu",
-}
-_HEADERS = ("slab_chain.cuh",)
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-_loaded = {}  # library path -> ctypes library (one build per process)
 
 
 def column_row_windows(offsets, center_cell, grid_g, bk, halo):
@@ -306,127 +287,34 @@ def slab_edge_max_backward_reference(
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, load, launch
+# the CUDA kernels: launch (built and loaded by nn/cuda_build.py)
 # ---------------------------------------------------------------------------
 
-
-def _source_hash(name):
-    """Hash of the kernel's source, the headers it includes and the
-    compiler flags: a change to any of them rebuilds it."""
-    h = hashlib.sha256((_CSRC_DIR / SOURCES[name]).read_bytes())
-    for header in _HEADERS:
-        h.update((_CSRC_DIR / header).read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _lib_path(name):
-    return _BUILD_DIR / ("%s_%s.so" % (name, _source_hash(name)))
-
-
-def _nvcc():
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                     "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
-
-
-def build_kernels(names=None):
-    """Compile the kernels' sources for sm_90a into ``build/torch_kernels/``
-    (keyed by the source hash), one ``nvcc`` per missing library, all
-    started together.  Returns ``{name: (path, seconds, compiler
-    output)}``; a library that exists already reports 0 s and no output."""
-    names = list(SOURCES) if names is None else list(names)
-    result, running = {}, {}
-    for name in names:
-        lib_path = _lib_path(name)
-        if lib_path.exists():
-            result[name] = (lib_path, 0.0, "")
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(".so.tmp%d" % os.getpid())
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-             str(_CSRC_DIR / SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running[name] = (proc, tmp, lib_path, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, lib_path, t0) in running.items():
-        try:
-            log, _ = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append("nvcc failed building %s:\n%s"
-                          % (SOURCES[name], log))
-            continue
-        os.replace(tmp, lib_path)
-        result[name] = (lib_path, time.perf_counter() - t0, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return result
-
-
-def _kernel_lib(name):
-    path = _lib_path(name)
-    if path not in _loaded:
-        build_kernels([name])
-        lib = ctypes.CDLL(str(path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "slab_edge_max":
-            fn = lib.slab_edge_max_launch
-            fn.argtypes = [
-                vp, vp, vp, vp,          # table_a, src_xyz, table_b, ctr_xyz
-                vp, vp,                  # win_lo, win_hi
-                vp, vp, ci,              # weights, layer table (host), layers
-                vp,                      # out
-                ci, ci, ci, ci, ci,      # K, H, H_out, grid_g, bk
-                cf, ci,                  # r^2, bf16
-                ci, vp,                  # device index, stream
-            ]
-        else:
-            fn = lib.slab_edge_max_bwd_launch
-            fn.argtypes = [
-                vp, vp, vp, vp,          # table_a, src_xyz, table_b, ctr_xyz
-                vp, vp, vp, vp,          # win_lo, win_hi, win_base, row_col
-                vp, vp, vp, ci, ci,      # weights, weights^T, table, L, n_w
-                vp, vp,                  # forward out, cotangent
-                vp, vp, vp, vp, vp,      # da_part, d_a, d_b, dw_part, d_w
-                ci, ci, ci, ci, ci, ci,  # K, P, H, H_out, grid_g, bk
-                cf,                      # r^2
-                ci, vp,                  # device index, stream
-            ]
-        fn.restype = ci
-        _loaded[path] = lib
-    return _loaded[path]
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [
+    _vp, _vp, _vp, _vp,          # table_a, src_xyz, table_b, ctr_xyz
+    _vp, _vp,                    # win_lo, win_hi
+    _vp, _vp, _ci,               # weights, layer table (host), layers
+    _vp,                         # out
+    _ci, _ci, _ci, _ci, _ci,     # K, H, H_out, grid_g, bk
+    _cf, _ci,                    # r^2, bf16
+    _ci, _vp,                    # device index, stream
+]
+_BWD_ARGS = [
+    _vp, _vp, _vp, _vp,          # table_a, src_xyz, table_b, ctr_xyz
+    _vp, _vp, _vp, _vp,          # win_lo, win_hi, win_base, row_col
+    _vp, _vp, _vp, _ci, _ci,     # weights, weights^T, table, L, n_w
+    _vp, _vp,                    # forward out, cotangent
+    _vp, _vp, _vp, _vp, _vp,     # da_part, d_a, d_b, dw_part, d_w
+    _ci, _ci, _ci, _ci, _ci, _ci,  # K, P, H, H_out, grid_g, bk
+    _cf,                         # r^2
+    _ci, _vp,                    # device index, stream
+]
 
 
 def _require(cond, msg):
     if not cond:
         raise ValueError("slab_edge_max: " + msg)
-
-
-def _flat_chain(weights, cd, device, transpose=False):
-    """The chain as one flat float32 buffer ``[w_0, b_0, w_1, ...]``
-    (rounded to ``cd``; each ``w`` as ``[dout, din]`` when
-    ``transpose``), its host layer table (weight offset, bias offset,
-    din, dout) and its length."""
-    flat, meta, off = [], [], 0
-    for w, b in weights:
-        wr = round_to(w, cd)
-        wr = (wr.T if transpose else wr).contiguous().reshape(-1)
-        br = round_to(b, cd).reshape(-1)
-        meta += [off, off + wr.numel(), w.shape[0], w.shape[1]]
-        flat += [wr, br]
-        off += wr.numel() + br.numel()
-    flat_w = torch.cat(flat) if flat else torch.zeros(1, device=device)
-    return flat_w, (ctypes.c_int * max(len(meta), 1))(*meta), off
 
 
 def _compute_dtype_name(compute_dtype):
@@ -499,10 +387,11 @@ def slab_edge_max(
     win_lo, win_hi = column_row_windows(
         offsets, center_cell, grid_g, block_centers, halo
     )
-    flat_w, meta_host, _ = _flat_chain(weights, cd, table_a.device)
+    flat_w, meta_host, _ = cuda_build.flat_chain(weights, cd, table_a.device)
     out = torch.empty((k, h_out), dtype=torch.float32, device=table_a.device)
     stream = torch.cuda.current_stream(table_a.device)
-    rc = _kernel_lib("slab_edge_max").slab_edge_max_launch(
+    rc = cuda_build.kernel_entry(
+        "slab_edge_max", "slab_edge_max_launch", _FWD_ARGS)(
         table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
         ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
         flat_w.data_ptr(), ctypes.addressof(meta_host), len(weights),
@@ -574,8 +463,10 @@ def slab_edge_max_backward(
     )
     row_col = torch.where(cell < ncells, cell // grid_g,
                           torch.full_like(cell, -1)).to(torch.int32)
-    flat_w, meta_host, n_weights = _flat_chain(weights, "float32", dev)
-    flat_t, _, _ = _flat_chain(weights, "float32", dev, transpose=True)
+    flat_w, meta_host, n_weights = cuda_build.flat_chain(weights,
+                                                          "float32", dev)
+    flat_t, _, _ = cuda_build.flat_chain(weights, "float32", dev,
+                                         transpose=True)
     f32 = dict(dtype=torch.float32, device=dev)
     da_part = torch.empty(max(total_rows, 1) * h, **f32)
     dw_part = torch.empty(max(nb * n_weights, 1), **f32)
@@ -585,7 +476,8 @@ def slab_edge_max_backward(
     g = g.contiguous()
     out = out.contiguous()
     stream = torch.cuda.current_stream(dev)
-    rc = _kernel_lib("slab_edge_max_bwd").slab_edge_max_bwd_launch(
+    rc = cuda_build.kernel_entry(
+        "slab_edge_max_bwd", "slab_edge_max_bwd_launch", _BWD_ARGS)(
         table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
         ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
         win_base.data_ptr(), row_col.data_ptr(), flat_w.data_ptr(),

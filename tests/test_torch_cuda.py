@@ -1,7 +1,8 @@
-"""Tests of the port that need the card: the CUDA slab_edge_max kernel
-and its backward kernel against their plain PyTorch versions, and the
-launch counts of the serving path and of a train step.  They import no
-JAX, so on a machine without JAX they run with
+"""Tests of the port that need the card: the CUDA kernels (slab_edge_max,
+its backward, edge_tail_max and fused_edge_max) against their plain
+PyTorch versions, and the launch counts of the slab, edge-list and
+"l1" serving paths and of a train step.  They import no JAX, so on a
+machine without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -19,7 +20,7 @@ from pointgnn_tpu_torch.graph import device_labels as dl
 from pointgnn_tpu_torch.infer import InferencePipeline
 from pointgnn_tpu_torch.model.losses import loss_config
 from pointgnn_tpu_torch.model.pointgnn import PointGNN
-from pointgnn_tpu_torch.nn import slab
+from pointgnn_tpu_torch.nn import edge_tail, slab
 from pointgnn_tpu_torch.parallel import step as step_lib
 from pointgnn_tpu_torch.train import device_pipeline as dpipe
 from pointgnn_tpu_torch.train import optimizers
@@ -228,3 +229,111 @@ def test_backward_kernel_gives_tied_winners_full_cotangent(cuda):
                     [ref[0], ref[1], ref[2][0][0], ref[2][0][1]]):
         err = (x - z).abs().max().item()
         assert err <= BWD_TOL * (1 + z.abs().max().item()), err
+
+
+# ---------------------------------------------------------------------------
+# the edge-list tail: K3 (edge_tail_max) and K4 (fused_edge_max)
+# ---------------------------------------------------------------------------
+
+
+def _edge_graph(device):
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(
+        cfg, num_points=NUM_POINTS, num_keypoints=NUM_KEYPOINTS,
+        per_center_caps=(16, 64),
+    )
+    pts, _ = synthetic_lidar_frame(seed=0, n_beams=32, points_per_beam=160)
+    packed = torch.from_numpy(
+        db.pack_points(pts.xyz, pts.attr[:, :1], NUM_POINTS)
+    ).to(device)
+    return db.build_padded_graph(*db.unpack_points(packed), spec)
+
+
+def _tail_call(graph, level, widths, dtype, device):
+    """K3 and K4 arguments on the graph's level-``level`` edge list, with
+    random tables and chain in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(10 + level)
+    n = graph.vertex_xyz[level].shape[0]
+    k = graph.vertex_xyz[1].shape[0]
+    src = graph.edges_src[level].reshape(k, -1)
+    a = torch.randn(n, widths[0], generator=gen, device=device).to(dtype)
+    b = torch.randn(k, widths[0], generator=gen, device=device).to(dtype)
+    tail = [
+        ((torch.randn(i, o, generator=gen, device=device) / i ** 0.5)
+         .to(dtype), (0.1 * torch.randn(o, generator=gen, device=device))
+         .to(dtype))
+        for i, o in zip(widths[:-1], widths[1:])
+    ]
+    valid = (src < n).to(torch.float32).contiguous()
+    gathered = a.index_select(
+        0, torch.clamp(src.reshape(-1).long(), max=n - 1)).contiguous()
+    return (dict(gathered=gathered, table_b=b, slot_valid=valid,
+                 weights=tail),
+            dict(table_a=a, table_b=b, edges_src=src.contiguous(),
+                 slot_valid=valid, weights=tail))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("level,widths", [
+    (0, [32, 64, 128, 300]), (1, [300, 300]), (1, [36, 20]), (1, [40]),
+])
+def test_edge_tail_kernels_match_plain_version(cuda, level, widths,
+                                               compute_dtype):
+    graph = _edge_graph(cuda)
+    k3, k4 = _tail_call(graph, level, widths,
+                        getattr(torch, compute_dtype), cuda)
+    assert (k3["slot_valid"] == 0).any() and (k3["slot_valid"] > 0).any()
+    before = (edge_tail.edge_tail_max.launches,
+              edge_tail.fused_edge_max.launches)
+    out3 = edge_tail.edge_tail_max(**k3)
+    out4 = edge_tail.fused_edge_max(**k4)
+    torch.cuda.synchronize()
+    assert (edge_tail.edge_tail_max.launches,
+            edge_tail.fused_edge_max.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref = edge_tail.edge_tail_max_reference(**k3)
+    assert torch.equal(ref, edge_tail.fused_edge_max_reference(**k4))
+    for out in (out3, out4):
+        assert out.shape == ref.shape
+        rel = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        assert rel <= TOL[compute_dtype], rel
+    # one chain per slot in a fixed order: the gather's place changes
+    # nothing
+    assert torch.equal(out3, out4)
+    assert (out3.abs().sum(1) > 0).sum() > 0
+    # centers with no valid slot get 0
+    empty = k3["slot_valid"].sum(1) == 0
+    assert (out3[empty] == 0).all()
+
+
+def test_edge_tail_rejects_cpu_mixed_inputs(cuda):
+    graph = _edge_graph(cuda)
+    k3, k4 = _tail_call(graph, 1, [32, 32], torch.bfloat16, cuda)
+    k3["slot_valid"] = k3["slot_valid"].cpu()
+    with pytest.raises(ValueError, match="on cuda"):
+        edge_tail.edge_tail_max(**k3)
+    k4["edges_src"] = k4["edges_src"].long()
+    with pytest.raises(ValueError, match="int32"):
+        edge_tail.fused_edge_max(**k4)
+
+
+@pytest.mark.parametrize("mode,k3_per_frame,k1_per_frame", [
+    (False, 3, 0), ("l1", 1, 2),
+])
+def test_edge_serving_launch_counts(cuda, mode, k3_per_frame,
+                                    k1_per_frame):
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS,
+                               per_center_caps=(16, 64))
+    pipe = InferencePipeline(cfg, device_spec=spec, device=cuda, slab=mode)
+    pts, _ = synthetic_lidar_frame(seed=1, n_beams=32, points_per_beam=160)
+    k1, k3, k4 = (slab.slab_edge_max.launches,
+                  edge_tail.edge_tail_max.launches,
+                  edge_tail.fused_edge_max.launches)
+    cls, boxes, scores, _ = pipe.run_frame(pts)
+    # T = 2: one level-0 layer and two level-1 layers
+    assert edge_tail.edge_tail_max.launches == k3 + k3_per_frame
+    assert slab.slab_edge_max.launches == k1 + k1_per_frame
+    assert edge_tail.fused_edge_max.launches == k4
+    assert np.isfinite(boxes).all() and boxes.shape[1:] == (7,)
