@@ -11,8 +11,11 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
    ``fused_edge_max.cu``, one nvcc each, started together, sm_90a);
 2. holds ``slab_edge_max`` (K1) against its plain PyTorch version on the
    level-0 and level-1 slab metadata of a full-size car_auto_T3 frame
-   (24576 points, 12288 keypoints) in bf16, and times both; also checks
-   the f32 kernel at a small size;
+   (24576 points, 12288 keypoints) in bf16, and times both; holds the
+   kernel-built pair list of each level (the work plan of K1 and K2)
+   equal to the plain enumeration and prints its pair count, chunk count
+   and heaviest center block, and each call's device time by CUDA kernel
+   (torch.profiler); also checks the f32 kernel at a small size;
 3. serves 8 frames through ``InferencePipeline.run_frame`` at the full
    width of car_auto_T3 (random weights from seed 0), with the launch
    count reset just before and read just after: 4 launches per frame;
@@ -21,8 +24,11 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
 5. holds ``slab_edge_max_backward`` (K2) against its plain version at
    the full training shapes of a randomized car_auto_T3 training graph
    (32768 points, 12288 keypoints), f32, runs it twice to show bitwise
-   reproducible gradients, and times K1 and K2 in f32 beside their
-   plain versions;
+   reproducible gradients, checks the pair list as phase 2 does and the
+   winners exactly (with a cotangent of ones the last bias gradient
+   counts each channel's winner entries, at least its positive
+   outputs), and times K1 and K2 in f32 beside their plain versions,
+   with their device time by CUDA kernel;
 6. trains car_auto_T3 at full width and depth through ``make_train_step``
    (sgd, lr 0.125, batch 4 on one card, per-step graph randomization,
    random weights from seed 0): one warm-up step, then 3 timed steps
@@ -67,6 +73,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (no TF32)
+# f32-accurate products on the tensor cores as split TF32 (three TF32
+# products each): 495 / 3 TFLOP/s; reported beside the f32 bound
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 NUM_POINTS, NUM_KEYPOINTS = 24576, 12288
@@ -146,6 +155,35 @@ def time_ms(fn, runs, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_split(fn, calls=3):
+    """Device ms per call of ``fn()`` by CUDA kernel (torch.profiler,
+    self device time, averaged over ``calls``), largest first: where a
+    wrapper's time goes among the kernels and torch ops it launches."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            # "void (anonymous namespace)::f<args>(params)" -> "f<args>"
+            key = ev.key.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void ", "", re.sub(r"\(.*", "", key))
+            name = name.split("::")[-1]
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 def slab_call_inputs(graph, level, spec, widths, seed, device):
@@ -229,6 +267,44 @@ def bound(args, pairs, peak_flops, winners=None):
     ), flops, n_bytes
 
 
+def pair_list_check(args):
+    """The kernel-built pair list of one call against the plain
+    enumeration (``slab._inradius_pairs``): the same (k, j) set, grouped
+    by center with rows ascending, the same on two runs.  Returns the pair
+    count, the chunk count and the heaviest center block's pair count
+    (the critical path of a kernel that gives each block one CTA)."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import slab
+
+    bk = slab.DEFAULT_BLOCK_CENTERS
+    win_lo, win_hi = slab.column_row_windows(
+        args["offsets"], args["center_cell"], args["grid_g"], bk,
+        args["halo"])
+    walk = (args["src_xyz"], args["ctr_xyz"], win_lo, win_hi, bk,
+            args["radius"])
+    row_ptr, pair_k, pair_j = slab.pair_list(*walk)
+    again = slab.pair_list(*walk)
+    check(all(torch.equal(x, y) for x, y in zip((row_ptr, pair_k, pair_j),
+                                                again)),
+          "the pair list differs between two runs")
+    p = args["src_xyz"].shape[0]
+    got = pair_k.to(torch.int64) * p + pair_j.to(torch.int64)
+    want = torch.cat([k * p + j for k, j in slab._inradius_pairs(*walk)])
+    check(torch.equal(got, torch.sort(want).values),
+          "kernel pair list differs from the plain enumeration")
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    check(torch.equal(torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts),
+        pair_k.to(torch.int64)), "pair list offsets do not match its centers")
+    n, chunks, heaviest = slab.pair_stats(
+        args["src_xyz"], args["ctr_xyz"], args["offsets"],
+        args["center_cell"], args["grid_g"], args["radius"], args["halo"])
+    check(n == pair_k.numel(), "pair_stats count differs")
+    return dict(pairs=n, chunks=chunks, heaviest_block_pairs=heaviest,
+                max_center_pairs=int(counts.max()) if n else 0)
+
+
 def kernel_phase(report, device):
     """Phase 2: kernel vs plain version at full car_T3 shapes."""
     import torch
@@ -268,9 +344,18 @@ def kernel_phase(report, device):
             args["center_cell"], args["grid_g"], args["radius"],
             args["halo"],
         )
+        plist = pair_list_check(args)
+        check(plist["pairs"] == pairs, "L%d: pair list %d vs %d pairs"
+              % (level, plist["pairs"], pairs))
+        print("phase 2: L%d pair list equals the plain enumeration: %d "
+              "pairs, %d chunks of %d, heaviest block %d pairs, heaviest "
+              "center %d" % (level, pairs, plist["chunks"], slab.PAIR_CHUNK,
+                             plist["heaviest_block_pairs"],
+                             plist["max_center_pairs"]), flush=True)
         ms = time_ms(lambda: slab.slab_edge_max(**kw), runs=20)
         plain_ms = time_ms(lambda: slab.slab_edge_max_reference(**kw),
                            runs=10, warmup=1)
+        split = kernel_split(lambda: slab.slab_edge_max(**kw))
         bound_ms, bound_by, flops, n_bytes = bound(args, pairs,
                                                    PEAK_BF16_FLOPS)
         levels["L%d" % level] = dict(
@@ -279,7 +364,8 @@ def kernel_phase(report, device):
             inradius_pairs=pairs, max_abs_err=err.max().item(),
             max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, flops=flops, bytes=n_bytes,
-            nonzero_rows=int((out.abs().sum(1) > 0).sum()),
+            nonzero_rows=int((out.abs().sum(1) > 0).sum()), pair_list=plist,
+            device_ms_by_kernel=split,
         )
         print("phase 2: L%d P=%d K=%d pairs=%d max_abs_err=%.3g "
               "rel=%.3g (tol %.3g) kernel %.3f ms plain %.3f ms "
@@ -287,6 +373,8 @@ def kernel_phase(report, device):
               % (level, args["table_a"].shape[0], args["table_b"].shape[0],
                  pairs, err.max().item(), rel, BF16_TOL, ms, plain_ms,
                  bound_ms, bound_by), flush=True)
+        print("  device ms per call by kernel: %s"
+              % {k: round(v, 4) for k, v in split.items()}, flush=True)
     report["levels"] = levels
 
     # f32 kernel at a small size: the first 2048 keypoints of level 1
@@ -535,6 +623,31 @@ def backward_kernel_phase(report, device):
             args["center_cell"], args["grid_g"], args["radius"],
             args["halo"],
         )
+        plist = pair_list_check(args)
+        check(plist["pairs"] == pairs, "L%d: pair list %d vs %d pairs"
+              % (level, plist["pairs"], pairs))
+        # exact winners: with g = 1 the last bias gradient of a channel
+        # counts its winner entries (exact in f32); every center with a
+        # positive output has at least one, unless K2's recompute differs
+        # from K1's forward
+        ones = slab.slab_edge_max_backward(**kw, out=out,
+                                           g=torch.ones_like(out))
+        won = ones[2][-1][1]
+        need = (out > 0).sum(0).to(torch.float32)
+        check(bool((won >= need).all()),
+              "L%d: %d channels lost winners (K2 recompute != K1 forward)"
+              % (level, int((won < need).sum())))
+        winner_check = dict(winner_entries=int(won.sum()),
+                            positive_outputs=int(need.sum()))
+        print("phase 5: L%d pair list equals the plain enumeration: %d "
+              "pairs, %d chunks of %d, heaviest block %d pairs; winner "
+              "check (g = 1): %d winner entries >= %d positive outputs, "
+              "every channel" % (level, pairs, plist["chunks"],
+                                 slab.PAIR_CHUNK,
+                                 plist["heaviest_block_pairs"],
+                                 winner_check["winner_entries"],
+                                 winner_check["positive_outputs"]),
+              flush=True)
         ms = time_ms(lambda: slab.slab_edge_max_backward(**kw, out=out,
                                                          g=g),
                      runs=5, warmup=1)
@@ -545,6 +658,9 @@ def backward_kernel_phase(report, device):
         fwd_ms = time_ms(lambda: slab.slab_edge_max(**kw), runs=5, warmup=1)
         fwd_plain_ms = time_ms(lambda: slab.slab_edge_max_reference(**kw),
                                runs=3, warmup=1)
+        split = kernel_split(lambda: slab.slab_edge_max_backward(
+            **kw, out=out, g=g))
+        fwd_split = kernel_split(lambda: slab.slab_edge_max(**kw))
         winners = slab.winner_counts(**kw, out=ref_out)
         bound_ms, bound_by, flops, n_bytes = bound(args, pairs,
                                                    PEAK_F32_FLOPS, winners)
@@ -557,9 +673,16 @@ def backward_kernel_phase(report, device):
             winning_pairs=winners[1], grads=errs,
             max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-            bytes=n_bytes, fwd_f32=dict(
+            bytes=n_bytes, pair_list=plist, winner_check=winner_check,
+            device_ms_by_kernel=split,
+            bound_ms_at_3xtf32=bound(args, pairs, PEAK_3XTF32_FLOPS,
+                                     winners)[0],
+            fwd_f32=dict(
                 ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound_ms,
-                bound_by=fwd_bound_by, max_abs_err=fwd_err),
+                bound_by=fwd_bound_by, max_abs_err=fwd_err,
+                bound_ms_at_3xtf32=bound(args, pairs,
+                                         PEAK_3XTF32_FLOPS)[0],
+                device_ms_by_kernel=fwd_split),
         )
         print("phase 5: L%d P=%d K=%d pairs=%d (winner entries %d, "
               "winning pairs %d) K2 max_abs_err=%.3g "
@@ -573,6 +696,10 @@ def backward_kernel_phase(report, device):
         for name, e in errs.items():
             print("  %s: max_abs_err %.3g max|plain| %.3g"
                   % (name, e["max_abs_err"], e["max_abs_plain"]))
+        for name, sp in (("K2", split), ("K1 f32", fwd_split)):
+            print("  %s device ms per call by kernel: %s"
+                  % (name, {k: round(v, 4) for k, v in sp.items()}),
+                  flush=True)
     report["train_levels"] = levels
 
 

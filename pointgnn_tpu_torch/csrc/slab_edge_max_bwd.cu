@@ -3,15 +3,15 @@
 // Replaces the TPU Pallas kernel pointgnn_tpu/nn/pallas_kernels.py
 // (slab_edge_max_train's custom VJP -> _slab_backward -> _slab_bwd_kernel).
 // Called from pointgnn_tpu_torch/nn/slab.py (slab_edge_max_backward), which
-// checks the inputs, computes the candidate row windows [lo, hi) of every
-// (center block, grid column), their offsets into the per-block partial
-// buffer and each row's column, and launches the three kernels below on
+// checks the inputs, builds the CSR pair list with the forward's pair
+// kernels (slab_edge_max.cu), a source-sorted view of it (stable argsort
+// of the rows) and the scratch buffers, and launches the kernels below on
 // PyTorch's current stream through a plain C interface.
 //
 // What it computes, given the forward's output y_max [K, H_out] and its
-// cotangent g [K, H_out], for every in-radius pair (k, j) of the walk:
+// cotangent g [K, H_out], for every in-radius pair (k, j):
 //   recompute x0 = relu(A[j] - B[k]) and the chain, bit for bit as the
-//     forward did (slab_chain.cuh);
+//     forward did (slab_mma::chain_kernel in slab_chain.cuh, shared with K1);
 //   dz_last[c] = g[k, c] where y[c] == y_max[k, c] and y[c] > 0 (every tied
 //     winner gets the full cotangent, as on the TPU), else 0;
 //   back through each layer: dW += x_prev^T dz, db += sum dz,
@@ -19,33 +19,34 @@
 //   d_table_a[j] += dz_0, d_table_b[k] -= dz_0.
 // Coordinates and cell metadata get no gradient (graph structure).
 // Training runs the chain in f32 (every shipped config), so this kernel
-// does f32 only: no rounding point, no TF32.
+// does f32 only: the recompute is f32 fmaf (K1's f32 route), the
+// lower layers' backward split TF32 (3xTF32) on tensor cores.
 //
-// Bound on this card.  Per in-radius pair the work is three chain-sized
-// products (recompute, dW, dy): 3 * 2 * sum_l din_l * dout_l FLOPs; the
-// unique bytes are the tables, coordinates, weights, g, y_max and the
-// gradients (a few MB).  At 1e5..1e6 pairs a call is bound by operations.
-// Training runs in f32 without TF32, so the peak is the 67 TFLOP/s of f32
-// outside the tensor cores.
+// Bound on this card.  The recompute costs the forward's chain on every
+// pair; only the winner (pair, channel) entries carry a cotangent (about
+// 4 of 300 channels per pair at level 1), so the last layer's backward
+// costs 4 * din FLOPs per winner entry and the layers below a dense
+// backward on the pairs.  At 1e5..1e6 pairs a call is bound by
+// operations.
 //
-// Design (a simple kernel that is right first; speed is later work):
-// - main kernel: one CTA of 256 threads per block of bk centers walks
-//   exactly [lo, hi) of every column in tiles of kTileRows rows, as the
-//   forward does.  A tile's in-radius pairs are compacted in (center,
-//   row) order with warp ballots (no atomics: the order, and with it every
-//   floating-point sum, is the same on every run);
-// - pairs run kPairBatch at a time: the chain is recomputed keeping every
-//   layer's activation in shared memory, the cotangent replaces the last
-//   activation in place, and each layer's backward overwrites its input
-//   activation with the cotangent of the layer below;
-// - cross-CTA sums never use atomics.  d_table_b rows belong to the CTA
-//   (shared-memory accumulator, written once).  dW/db go to a per-CTA
-//   partial slice in device memory (the owning thread of a column is its
-//   only writer), summed over CTAs in block order by dw_reduce_kernel.
-//   A tile's d_table_a rows are summed in shared memory and written to the
-//   CTA's window slot of a partial buffer; da_reduce_kernel sums each
-//   row's slots over the center blocks in block order.  So two runs on
-//   the same inputs give bitwise-equal gradients.
+// Design, six stages over the pair list (CSR by center, chunks of 64
+// pairs spread statically over CTAs sized to the SMs, as in K1):
+// 1. chain_kernel<f32, train>: recompute as K1 did; writes each
+//    layer's input rows per pair (acts) and the winner cotangent dz_last;
+// 2. sparse_dy_kernel: one warp per pair compacts its nonzero dz_last
+//    entries and sums g * W_last[:, c] over them (c ascending), masked by
+//    the last layer's input > 0;
+// 3. sparse_dw_kernel: dW_last[:, c] += x_prev[p] * dz[p, c] and db over
+//    the nonzero entries only, a CTA per (block of rows, fixed pair
+//    range), each range into its own partial slot;
+// 4. lower_bwd_kernel, per hidden layer from the top: dz W^T and
+//    x_prev^T dz on tensor cores over chunks, dW/db into the CTA's partial
+//    slot in shared memory (one owning thread per element);
+// 5. table_grad_kernel: d_table_b[k] = -sum of dz_0 over k's run of pairs,
+//    d_table_a[j] = sum of dz_0 over j's pairs in the source-sorted order;
+// 6. reduce_kernel: dW/db summed over the partial slots in slot order.
+// No float atomics: every sum runs in a fixed order, so two runs on the
+// same inputs give bitwise-equal gradients.
 
 #include <cstddef>
 
@@ -54,443 +55,396 @@
 namespace {
 
 using namespace slab;
+using slab_mma::kChunk;
+using slab_mma::kThreads;
+using slab_mma::kWarps;
+using slab_mma::round_up;
+using slab_mma::row_stride;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPairBatch = 32;
-constexpr int kTileRows = 32;
-constexpr size_t kMaxSmem = 232448;  // Hopper: 227 KB per block
-
-// Shared-memory layout, in floats; every section starts 16-byte aligned.
-struct BwdLayout {
-  int act[kMaxLayers + 1];  // [kPairBatch, align4(dim_l)] per activation
-  int stride[kMaxLayers + 1];
-  int scratch, scratch_stride, da, db, ctr, pairs, total;
-  __host__ __device__ BwdLayout(const Chain& c, int bk, int h) {
-    int off = 0;
-    int width = h;
-    for (int l = 0; l <= c.n_layers; ++l) {
-      const int dim = l == 0 ? h : c.dout[l - 1];
-      width = dim > width ? dim : width;
-      act[l] = off;
-      stride[l] = align4(dim);
-      off += kPairBatch * stride[l];
+// dz_prev[p, i] = (x_prev[p, i] > 0) * sum_c dz[p, c] * W[i, c] over the
+// nonzero dz[p, c], c ascending; wt is W as [dout, din].  One warp per
+// pair; the nonzero entries are compacted into the warp's shared list.
+__global__ void __launch_bounds__(kThreads)
+    sparse_dy_kernel(const float* __restrict__ dz,
+                     const float* __restrict__ wt,
+                     const float* __restrict__ x_prev,
+                     float* __restrict__ dz_prev, int n_pairs, int din,
+                     int dout) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* list_c = reinterpret_cast<int*>(smem) + warp * 2 * dout;
+  float* list_g = reinterpret_cast<float*>(list_c + dout);
+  const int p = blockIdx.x * kWarps + warp;
+  if (p >= n_pairs) return;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  int cnt = 0;
+  for (int c0 = 0; c0 < dout; c0 += 32) {
+    const int c = c0 + lane;
+    const float v = c < dout ? dz[(size_t)p * dout + c] : 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, v != 0.f);
+    if (v != 0.f) {
+      const int slot = cnt + __popc(ballot & lt_mask);
+      list_c[slot] = c;
+      list_g[slot] = v;
     }
-    scratch = off;
-    scratch_stride = align4(width);
-    off += kPairBatch * scratch_stride;
-    da = off;
-    off += align4(kTileRows * h);
-    db = off;
-    off += align4(bk * h);
-    ctr = off;
-    off += bk * 4;
-    pairs = off;
-    total = pairs + 2 * bk * kTileRows;
+    cnt += __popc(ballot);
+  }
+  __syncwarp();
+  for (int i = lane; i < din; i += 32) {
+    float acc = 0.f;
+    for (int e = 0; e < cnt; ++e) {
+      acc = fmaf(list_g[e], __ldg(&wt[(size_t)list_c[e] * din + i]), acc);
+    }
+    const size_t pi = (size_t)p * din + i;
+    dz_prev[pi] = x_prev[pi] > 0.f ? acc : 0.f;
+  }
+}
+
+// Partial slot b (blockIdx.y) of the last layer, for the rows
+// [i0, i0 + rows) of block row blockIdx.x: dW[i, c] = sum over the pairs
+// p of range b, ascending, with dz[p, c] != 0 of x_prev[p, i] * dz[p, c],
+// and db[c] = sum of those dz[p, c].  Warp w owns the columns c = w
+// (mod 8): it finds their nonzero entries pair by pair (warp ballots) and
+// adds each one's x_prev row slice into its shared-memory columns, lanes
+// over i.  So each dW element has one writer that takes the entries in
+// pair order, and each x_prev row is read once per block row.
+constexpr int kDwRowsMax = 32 * 6;  // rows a block owns at most
+constexpr int kDzBatch = 8;         // pairs whose dz a warp loads at once
+
+__global__ void __launch_bounds__(kThreads)
+    sparse_dw_kernel(const float* __restrict__ dz,
+                     const float* __restrict__ x_prev,
+                     float* __restrict__ dw_part, int n_weights, int w_off,
+                     int b_off, int n_pairs, int din, int dout, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);  // [rows, dout + 1]
+  const int sa = dout + 1;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int i0 = blockIdx.x * rows;
+  const int ni = min(rows, din - i0);
+  const int per = (n_pairs + gridDim.y - 1) / gridDim.y;
+  const int pa = min(n_pairs, blockIdx.y * per);
+  const int pb = min(n_pairs, pa + per);
+  for (int e = tid; e < rows * sa; e += kThreads) acc[e] = 0.f;
+  __syncthreads();
+  // the warp's columns: c = warp + 8 * (lane + 32 m)
+  const int n_cols = (dout - warp + kWarps - 1) / kWarps;
+  float db[2] = {0.f, 0.f};
+  for (int p0 = pa; p0 < pb; p0 += kDzBatch) {
+    float v[kDzBatch][2];
+#pragma unroll
+    for (int q = 0; q < kDzBatch; ++q)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int cc = lane + 32 * m;
+        v[q][m] = (p0 + q < pb && cc < n_cols)
+                      ? dz[(size_t)(p0 + q) * dout + warp + kWarps * cc]
+                      : 0.f;
+      }
+    for (int q = 0; q < kDzBatch && p0 + q < pb; ++q) {
+      const float* x = x_prev + (size_t)(p0 + q) * din + i0;
+      float xv[kDwRowsMax / 32];
+      bool loaded = false;
+      for (int m = 0; m < 2 && 32 * m < n_cols; ++m) {
+        unsigned ballot = __ballot_sync(0xffffffffu, v[q][m] != 0.f);
+        db[m] += v[q][m];
+        while (ballot != 0) {
+          const int src = __ffs(ballot) - 1;
+          ballot &= ballot - 1;
+          const float g = __shfl_sync(0xffffffffu, v[q][m], src);
+          const int c = warp + kWarps * (src + 32 * m);
+          if (!loaded) {
+#pragma unroll
+            for (int u = 0; u < kDwRowsMax / 32; ++u) {
+              const int i = lane + 32 * u;
+              xv[u] = i < ni ? __ldg(&x[i]) : 0.f;
+            }
+            loaded = true;
+          }
+#pragma unroll
+          for (int u = 0; u < kDwRowsMax / 32; ++u) {
+            const int i = lane + 32 * u;
+            if (i < ni) acc[i * sa + c] = fmaf(xv[u], g, acc[i * sa + c]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* part = dw_part + (size_t)blockIdx.y * n_weights;
+  for (int e = tid; e < ni * dout; e += kThreads) {
+    const int i = e / dout, c = e - i * dout;
+    part[w_off + (size_t)(i0 + i) * dout + c] = acc[i * sa + c];
+  }
+  if (blockIdx.x == 0) {
+    for (int m = 0; m < 2; ++m) {
+      const int cc = lane + 32 * m;
+      if (cc < n_cols) part[b_off + warp + kWarps * cc] = db[m];
+    }
+  }
+}
+
+// Shared-memory layout of lower_bwd_kernel, in floats.
+struct LowerLayout {
+  int w, sw, dz, sdz, dzt, sdzt, xt, sxt, xt_rows, dw, db, total;
+  __host__ __device__ LowerLayout(int din, int dout) {
+    sw = row_stride(dout, false);
+    sdz = row_stride(dout, false);
+    sdzt = row_stride(kChunk, false);
+    sxt = row_stride(kChunk, false);
+    xt_rows = round_up(din, 32);
+    w = 0;
+    dz = w + round_up(round_up(din, 32) * sw, 4);
+    dzt = dz + kChunk * sdz;
+    xt = dzt + round_up(dout, 32) * sdzt;
+    dw = xt + xt_rows * sxt;
+    db = dw + round_up(din * dout, 4);
+    total = db + round_up(dout, 4);
   }
 };
 
-// Compacts the tile's in-radius (center, row) candidates into s_pk/s_pj
-// in candidate order (center-major), with warp ballots and a scan over
-// the warps.  Returns the pair count (the same value in every thread).
-__device__ int compact_pairs(const float* __restrict__ src_xyz,
-                             const float* s_ctr, int* s_pk, int* s_pj,
-                             int* s_warp, int r0, int nrows, int nk, int bk,
-                             float r2) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  int base = 0;
-  for (int c0 = 0; c0 < bk * kTileRows; c0 += kThreads) {
-    const int c = c0 + tid;
-    const int k = c / kTileRows;
-    const int jj = c - k * kTileRows;
-    bool hit = false;
-    if (k < nk && jj < nrows) {
-      hit = in_radius(&src_xyz[(size_t)(r0 + jj) * 4], &s_ctr[k * 4], r2);
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base, total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int n = s_warp[w];
-      before += w < warp ? n : 0;
-      total += n;
-    }
-    if (hit) {
-      const int slot = before + __popc(ballot & lt_mask);
-      s_pk[slot] = k;
-      s_pj[slot] = jj;
-    }
-    base += total;
-    __syncthreads();  // s_warp is rewritten by the next round
-  }
-  return base;
-}
-
-// Backward of pairs [0, np) of the lists (np <= kPairBatch).  Ends with
-// all threads synchronised.
-__device__ void backward_batch(
-    const float* __restrict__ table_a, const float* __restrict__ table_b,
-    const float* __restrict__ weights, const float* __restrict__ weights_t,
-    const Chain& chain, const BwdLayout& lay, float* smem,
-    const float* __restrict__ y_max, const float* __restrict__ g,
-    float* my_dw, const int* pk, const int* pj, int np, int k0, int r0,
-    int h, int h_out) {
-  const int tid = threadIdx.x;
-  const int n_layers = chain.n_layers;
-  float* x0 = smem + lay.act[0];
-  const int st0 = lay.stride[0];
-  for (int idx = tid; idx < kPairBatch * h; idx += kThreads) {
-    const int p = idx / h, i = idx - (idx / h) * h;
-    float v = 0.f;
-    if (p < np) {
-      const size_t j = r0 + pj[p];
-      const size_t k = k0 + pk[p];
-      v = first_act<false>(table_a[j * h + i], table_b[k * h + i]);
-    }
-    x0[p * st0 + i] = v;
-  }
-  __syncthreads();
-
-  // forward recompute, keeping every activation
-  for (int l = 0; l < n_layers; ++l) {
-    const int din = chain.din[l], dout = chain.dout[l];
-    const float* __restrict__ w = weights + chain.w_off[l];
-    const float* __restrict__ bias = weights + chain.b_off[l];
-    const float* xin = smem + lay.act[l];
-    float* xout = smem + lay.act[l + 1];
-    const int sin = lay.stride[l], sout = lay.stride[l + 1];
-    const bool last = (l + 1 == n_layers);
-    for (int o = tid; o < dout; o += kThreads) {
-      float acc[kPairBatch];
-      dense_column<kPairBatch>(xin, sin, w, din, dout, o, acc);
-      const float bo = __ldg(&bias[o]);
-#pragma unroll
-      for (int p = 0; p < kPairBatch; ++p) {
-        xout[p * sout + o] =
-            last ? last_out(acc[p], bo) : hidden_out<false>(acc[p], bo);
-      }
-    }
-    __syncthreads();
-  }
-
-  // winners: the cotangent goes to every pair whose output equals the
-  // forward's max; the last ReLU masks zero outputs
-  {
-    float* y = smem + lay.act[n_layers];
-    const int sy = lay.stride[n_layers];
-    for (int idx = tid; idx < kPairBatch * h_out; idx += kThreads) {
-      const int p = idx / h_out, c = idx - (idx / h_out) * h_out;
-      float v = 0.f;
-      if (p < np) {
-        const size_t kc = (size_t)(k0 + pk[p]) * h_out + c;
-        const float yv = y[p * sy + c];
-        if (yv > 0.f && yv == y_max[kc]) v = g[kc];
-      }
-      y[p * sy + c] = v;
-    }
-    __syncthreads();
-  }
-
-  // back through the chain: act[l + 1] holds dz of layer l
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const int din = chain.din[l], dout = chain.dout[l];
-    float* xp = smem + lay.act[l];
-    const float* dz = smem + lay.act[l + 1];
-    const int sp = lay.stride[l], sz = lay.stride[l + 1];
-    float* scratch = smem + lay.scratch;
-    const int ss = lay.scratch_stride;
-    float* dw = my_dw + chain.w_off[l];
-    float* db = my_dw + chain.b_off[l];
-    // dW[:, o] += x_prev^T dz[:, o] and db[o] += sum_p dz[p, o]
-    for (int o = tid; o < dout; o += kThreads) {
-      float dzr[kPairBatch];
-      float sb = 0.f;
-#pragma unroll
-      for (int p = 0; p < kPairBatch; ++p) {
-        dzr[p] = dz[p * sz + o];
-        sb += dzr[p];
-      }
-      db[o] += sb;
-      int i = 0;
-      for (; i + 4 <= din; i += 4) {
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xp[p * sp + i]);
-          s0 = fmaf(xv.x, dzr[p], s0);
-          s1 = fmaf(xv.y, dzr[p], s1);
-          s2 = fmaf(xv.z, dzr[p], s2);
-          s3 = fmaf(xv.w, dzr[p], s3);
-        }
-        dw[(size_t)(i + 0) * dout + o] += s0;
-        dw[(size_t)(i + 1) * dout + o] += s1;
-        dw[(size_t)(i + 2) * dout + o] += s2;
-        dw[(size_t)(i + 3) * dout + o] += s3;
-      }
-      for (; i < din; ++i) {
-        float s = 0.f;
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) s = fmaf(xp[p * sp + i], dzr[p], s);
-        dw[(size_t)i * dout + o] += s;
-      }
-    }
-    // dy[:, i] = dz W^T, from the transposed weights wt[o, i] = w[i, o]
-    const float* __restrict__ wt = weights_t + chain.w_off[l];
-    for (int i = tid; i < din; i += kThreads) {
-      float acc[kPairBatch];
-#pragma unroll
-      for (int p = 0; p < kPairBatch; ++p) acc[p] = 0.f;
-      int o = 0;
-      for (; o + 4 <= dout; o += 4) {
-        const float w0 = __ldg(&wt[(size_t)(o + 0) * din + i]);
-        const float w1 = __ldg(&wt[(size_t)(o + 1) * din + i]);
-        const float w2 = __ldg(&wt[(size_t)(o + 2) * din + i]);
-        const float w3 = __ldg(&wt[(size_t)(o + 3) * din + i]);
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) {
-          const float4 dv = *reinterpret_cast<const float4*>(&dz[p * sz + o]);
-          acc[p] = fmaf(dv.x, w0, acc[p]);
-          acc[p] = fmaf(dv.y, w1, acc[p]);
-          acc[p] = fmaf(dv.z, w2, acc[p]);
-          acc[p] = fmaf(dv.w, w3, acc[p]);
-        }
-      }
-      for (; o < dout; ++o) {
-        const float wo = __ldg(&wt[(size_t)o * din + i]);
-#pragma unroll
-        for (int p = 0; p < kPairBatch; ++p) {
-          acc[p] = fmaf(dz[p * sz + o], wo, acc[p]);
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < kPairBatch; ++p) scratch[p * ss + i] = acc[p];
-    }
-    __syncthreads();
-    // dz of the layer below (or, at l == 0, the table cotangent):
-    // dy * relu'(x_prev), written over x_prev
-    for (int idx = tid; idx < kPairBatch * din; idx += kThreads) {
-      const int p = idx / din, i = idx - (idx / din) * din;
-      const float xv = xp[p * sp + i];
-      xp[p * sp + i] = xv > 0.f ? scratch[p * ss + i] : 0.f;
-    }
-    __syncthreads();
-  }
-  // With no layers the cotangent sits on x0 itself, whose mask the winner
-  // step already applied.
-
-  // table cotangents: the thread of channel i is its only writer
-  float* s_da = smem + lay.da;
-  float* s_db = smem + lay.db;
-  for (int i = tid; i < h; i += kThreads) {
-    for (int p = 0; p < np; ++p) {
-      const float v = x0[p * st0 + i];
-      s_da[pj[p] * h + i] += v;
-      s_db[pk[p] * h + i] -= v;
-    }
-  }
-  __syncthreads();
-}
-
+// Backward of one hidden layer (din -> dout) over the chunks: given
+// dz [n, dout] (the cotangent of its ReLU output, already masked) and its
+// input x [n, din], writes dz_prev [n, din] = (dz W^T) * (x > 0) and adds
+// x^T dz and sum(dz) into the CTA's partial slot, on tensor cores (3xTF32).
 __global__ void __launch_bounds__(kThreads)
-    slab_bwd_kernel(const float* __restrict__ table_a,
-                    const float* __restrict__ src_xyz,
-                    const float* __restrict__ table_b,
-                    const float* __restrict__ ctr_xyz,
-                    const int* __restrict__ win_lo,
-                    const int* __restrict__ win_hi,
-                    const int* __restrict__ win_base,
-                    const float* __restrict__ weights,
-                    const float* __restrict__ weights_t, Chain chain,
-                    const float* __restrict__ y_max,
-                    const float* __restrict__ g, float* __restrict__ da_part,
-                    float* __restrict__ d_table_b, float* __restrict__ dw_part,
-                    int n_weights, int num_centers, int h, int h_out,
-                    int grid_g, int bk, float r2) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_warp[kWarps];
-  const BwdLayout lay(chain, bk, h);
-  float* s_da = smem + lay.da;
-  float* s_db = smem + lay.db;
-  float* s_ctr = smem + lay.ctr;
-  int* s_pk = reinterpret_cast<int*>(smem + lay.pairs);
-  int* s_pj = s_pk + bk * kTileRows;
-
+    lower_bwd_kernel(const float* __restrict__ dz_in,
+                     const float* __restrict__ x_in,
+                     const float* __restrict__ weights,
+                     float* __restrict__ dz_prev, float* __restrict__ dw_part,
+                     int n_weights, int w_off, int b_off, int n_pairs, int din,
+                     int dout) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s = reinterpret_cast<float*>(smem);
+  const LowerLayout lay(din, dout);
+  float* w = s + lay.w;
+  float* dz = s + lay.dz;
+  float* dzt = s + lay.dzt;
+  float* xt = s + lay.xt;
+  float* dw = s + lay.dw;
+  float* db = s + lay.db;
   const int tid = threadIdx.x;
-  const int blk = blockIdx.x;
-  const int k0 = blk * bk;
-  const int nk = min(bk, num_centers - k0);
-  float* my_dw = dw_part + (size_t)blk * n_weights;
-
-  for (int idx = tid; idx < n_weights; idx += kThreads) my_dw[idx] = 0.f;
-  for (int idx = tid; idx < bk * 4; idx += kThreads) {
-    s_ctr[idx] = idx / 4 < nk ? ctr_xyz[(size_t)k0 * 4 + idx] : -1e6f;
-  }
-  for (int idx = tid; idx < kTileRows * h; idx += kThreads) s_da[idx] = 0.f;
-  for (int idx = tid; idx < bk * h; idx += kThreads) s_db[idx] = 0.f;
+  for (int i = tid; i < lay.total; i += kThreads) s[i] = 0.f;
   __syncthreads();
-
-  for (int col = 0; col < grid_g; ++col) {
-    const int lo = win_lo[(size_t)blk * grid_g + col];
-    const int hi = win_hi[(size_t)blk * grid_g + col];
-    const size_t slot = win_base[(size_t)blk * grid_g + col];
-    for (int r0 = lo; r0 < hi; r0 += kTileRows) {
-      const int nrows = min(kTileRows, hi - r0);
-      const int n = compact_pairs(src_xyz, s_ctr, s_pk, s_pj, s_warp, r0,
-                                  nrows, nk, bk, r2);
-      for (int p0 = 0; p0 < n; p0 += kPairBatch) {
-        backward_batch(table_a, table_b, weights, weights_t, chain,
-                              lay, smem, y_max, g, my_dw, s_pk + p0,
-                              s_pj + p0, min(kPairBatch, n - p0), k0, r0, h,
-                              h_out);
-      }
-      float* dst = da_part + (slot + (size_t)(r0 - lo)) * h;
-      for (int idx = tid; idx < nrows * h; idx += kThreads) {
-        dst[idx] = s_da[idx];
-        s_da[idx] = 0.f;
-      }
-      __syncthreads();
+  // B of dz W^T as [n = i][k = o]: W itself, row-major [din, dout]
+  for (int idx = tid; idx < din * dout; idx += kThreads) {
+    const int i = idx / dout, o = idx - i * dout;
+    w[i * lay.sw + o] = weights[w_off + idx];
+  }
+  const int n_chunks = (n_pairs + kChunk - 1) / kChunk;
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int p0 = chunk * kChunk;
+    const int np = min(kChunk, n_pairs - p0);
+    __syncthreads();
+    for (int idx = tid; idx < kChunk * dout; idx += kThreads) {
+      const int p = idx / dout, o = idx - p * dout;
+      const float v = p < np ? dz_in[(size_t)(p0 + p) * dout + o] : 0.f;
+      dz[p * lay.sdz + o] = v;
+      dzt[o * lay.sdzt + p] = v;
+    }
+    for (int idx = tid; idx < kChunk * din; idx += kThreads) {
+      const int p = idx / din, i = idx - p * din;
+      xt[i * lay.sxt + p] = p < np ? x_in[(size_t)(p0 + p) * din + i] : 0.f;
+    }
+    __syncthreads();
+    slab_mma::gemm<false, true>(dz, lay.sdz, kChunk, w, lay.sw, din,
+                          slab_mma::k_pad(dout, false),
+                          [&](int r, int c, float v) {
+                            if (r < np) {
+                              dz_prev[(size_t)(p0 + r) * din + c] =
+                                  xt[c * lay.sxt + r] > 0.f ? v : 0.f;
+                            }
+                          });
+    slab_mma::gemm<false, true>(xt, lay.sxt, lay.xt_rows, dzt, lay.sdzt, dout,
+                          kChunk, [&](int r, int c, float v) {
+                            if (r < din) dw[r * dout + c] += v;
+                          });
+    for (int o = tid; o < dout; o += kThreads) {
+      float sb = db[o];
+      for (int p = 0; p < np; ++p) sb += dz[p * lay.sdz + o];
+      db[o] = sb;
     }
   }
-  for (int idx = tid; idx < nk * h; idx += kThreads) {
-    d_table_b[(size_t)k0 * h + idx] = s_db[idx];
+  __syncthreads();
+  float* part = dw_part + (size_t)blockIdx.x * n_weights;
+  for (int idx = tid; idx < din * dout; idx += kThreads) {
+    part[w_off + idx] = dw[idx];
   }
+  for (int o = tid; o < dout; o += kThreads) part[b_off + o] = db[o];
 }
 
-// d_table_a[j, i] = sum over center blocks b, ascending, whose window of
-// row j's column holds j, of that window slot's partial row.
+// d_table_b[k, i] = -sum over k's run of pairs, ascending, of dz0[p, i];
+// d_table_a[j, i] = sum over j's pairs in the source-sorted order.
 __global__ void __launch_bounds__(kThreads)
-    da_reduce_kernel(const float* __restrict__ da_part,
-                     const int* __restrict__ win_lo,
-                     const int* __restrict__ win_hi,
-                     const int* __restrict__ win_base,
-                     const int* __restrict__ row_col,
-                     float* __restrict__ d_table_a, int p_rows, int nb,
-                     int grid_g, int h) {
+    table_grad_kernel(const float* __restrict__ dz0,
+                      const int* __restrict__ row_ptr,
+                      const int* __restrict__ src_perm,
+                      const int* __restrict__ src_ptr,
+                      float* __restrict__ d_table_a,
+                      float* __restrict__ d_table_b, int num_centers,
+                      int p_rows, int h) {
   const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (size_t)p_rows * h) return;
-  const int j = static_cast<int>(idx / h);
-  const int i = static_cast<int>(idx - (size_t)j * h);
-  const int col = row_col[j];
-  float s = 0.f;
-  if (col >= 0) {
-    for (int b = 0; b < nb; ++b) {
-      const size_t w = (size_t)b * grid_g + col;
-      const int lo = win_lo[w];
-      if (j >= lo && j < win_hi[w]) {
-        s += da_part[((size_t)win_base[w] + (j - lo)) * h + i];
-      }
+  const size_t n_b = (size_t)num_centers * h;
+  if (idx < n_b) {
+    const int k = static_cast<int>(idx / h), i = static_cast<int>(idx % h);
+    float s = 0.f;
+    for (int p = row_ptr[k]; p < row_ptr[k + 1]; ++p) {
+      s += dz0[(size_t)p * h + i];
     }
+    d_table_b[idx] = -s;
+  } else if (idx < n_b + (size_t)p_rows * h) {
+    const size_t ia = idx - n_b;
+    const int j = static_cast<int>(ia / h), i = static_cast<int>(ia % h);
+    float s = 0.f;
+    for (int q = src_ptr[j]; q < src_ptr[j + 1]; ++q) {
+      s += dz0[(size_t)src_perm[q] * h + i];
+    }
+    d_table_a[ia] = s;
   }
-  d_table_a[idx] = s;
 }
 
-// d_w[e] = sum over center blocks b, ascending, of dw_part[b, e].
+// d_w[e] = sum over partial slots b, ascending, of dw_part[b, e].
 __global__ void __launch_bounds__(kThreads)
-    dw_reduce_kernel(const float* __restrict__ dw_part,
-                     float* __restrict__ d_w, int n_weights, int nb) {
+    reduce_kernel(const float* __restrict__ dw_part, float* __restrict__ d_w,
+                  int n_weights, int n_parts) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= n_weights) return;
   float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += dw_part[(size_t)b * n_weights + e];
+  for (int b = 0; b < n_parts; ++b) s += dw_part[(size_t)b * n_weights + e];
   d_w[e] = s;
-}
-
-cudaError_t launch(const float* table_a, const float* src_xyz,
-                   const float* table_b, const float* ctr_xyz,
-                   const int* win_lo, const int* win_hi, const int* win_base,
-                   const int* row_col, const float* weights,
-                   const float* weights_t, const Chain& chain, int n_weights,
-                   const float* y_max, const float* g, float* da_part,
-                   float* d_table_a, float* d_table_b, float* dw_part,
-                   float* d_w, int num_centers, int p_rows, int h, int h_out,
-                   int grid_g, int bk, float r2, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(chain, bk, h).total);
-  if (smem > kMaxSmem - sizeof(int) * kWarps) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int nb = (num_centers + bk - 1) / bk;
-  slab_bwd_kernel<<<nb, kThreads, smem, stream>>>(
-      table_a, src_xyz, table_b, ctr_xyz, win_lo, win_hi, win_base, weights,
-      weights_t, chain, y_max, g, da_part, d_table_b, dw_part, n_weights,
-      num_centers, h, h_out, grid_g, bk, r2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n_da = (size_t)p_rows * h;
-  if (n_da > 0) {
-    da_reduce_kernel<<<(unsigned)((n_da + kThreads - 1) / kThreads), kThreads,
-                       0, stream>>>(da_part, win_lo, win_hi, win_base, row_col,
-                                    d_table_a, p_rows, nb, grid_g, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (n_weights > 0) {
-    dw_reduce_kernel<<<(n_weights + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(dw_part, d_w, n_weights, nb);
-    err = cudaGetLastError();
-  }
-  return err;
 }
 
 }  // namespace
 
-// layer_table: host array of 4 ints per layer (weight offset, bias offset,
-// din, dout) into `weights`; `weights_t` has the same layout with every
-// weight transposed to [dout, din].  win_base [nb, grid_g]: offset, in
-// rows, of each window's slot in da_part; row_col [P]: grid column of
-// each candidate row (-1 for pad rows).  dw_part holds nb * n_weights
-// floats.  Returns the CUDA error code of the launches (0 on success).
+// weights / weights_t: the flat f32 chain, as given and with every weight
+// transposed to [dout, din]; layer_table: host array of 4 ints per layer
+// (weight offset, bias offset, din, dout).  The pair list: pair_k, pair_j
+// [n_pairs] grouped by center at row_ptr [K + 1]; src_perm [n_pairs] the
+// pair indices in stable row order, src_ptr [P + 1] its offsets per row.
+// Scratch: acts (sum over layers of n_pairs * din_l floats, at act_offsets
+// [n_layers]), dz_last [n_pairs * H_out], dz_a and dz_b [n_pairs * max
+// layer input width] each, dw_part [n_parts * n_weights].  Returns the
+// CUDA error code of the launches (0 on success).
 extern "C" int slab_edge_max_bwd_launch(
-    const void* table_a, const void* src_xyz, const void* table_b,
-    const void* ctr_xyz, const void* win_lo, const void* win_hi,
-    const void* win_base, const void* row_col, const void* weights,
+    const void* table_a, const void* table_b, const void* weights,
     const void* weights_t, const void* layer_table, int n_layers,
-    int n_weights, const void* y_max, const void* g, void* da_part,
-    void* d_table_a, void* d_table_b, void* dw_part, void* d_w,
-    int num_centers, int p_rows, int h, int h_out, int grid_g, int bk,
-    float r2, int device, void* stream) {
-  if (n_layers < 0 || n_layers > kMaxLayers || bk <= 0 || h <= 0 ||
-      h_out <= 0 || n_weights < 0) {
+    int n_weights, const void* pair_k, const void* pair_j,
+    const void* row_ptr, const void* src_perm, const void* src_ptr,
+    int n_pairs, const void* y_max, const void* g, void* acts,
+    const void* act_offsets, void* dz_last, void* dz_a, void* dz_b,
+    void* dw_part, int n_parts, void* d_table_a, void* d_table_b, void* d_w,
+    int num_centers, int p_rows, int h, int h_out, int device, void* stream) {
+  if (n_layers < 0 || n_layers > kMaxLayers || h <= 0 || h_out <= 0 ||
+      n_weights < 0 || n_parts <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_centers <= 0) return 0;
-  Chain chain;
-  chain.n_layers = n_layers;
-  const int* tbl = static_cast<const int*>(layer_table);
-  for (int l = 0; l < n_layers; ++l) {
-    chain.w_off[l] = tbl[4 * l + 0];
-    chain.b_off[l] = tbl[4 * l + 1];
-    chain.din[l] = tbl[4 * l + 2];
-    chain.dout[l] = tbl[4 * l + 3];
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const float*>(table_a);
-  const auto* sx = static_cast<const float*>(src_xyz);
-  const auto* b = static_cast<const float*>(table_b);
-  const auto* cx = static_cast<const float*>(ctr_xyz);
-  const auto* lo = static_cast<const int*>(win_lo);
-  const auto* hi = static_cast<const int*>(win_hi);
-  const auto* base = static_cast<const int*>(win_base);
-  const auto* rc = static_cast<const int*>(row_col);
+  const Chain chain = slab_mma::read_chain(layer_table, n_layers);
   const auto* w = static_cast<const float*>(weights);
   const auto* wt = static_cast<const float*>(weights_t);
-  const auto* ym = static_cast<const float*>(y_max);
-  const auto* gg = static_cast<const float*>(g);
-  auto* dap = static_cast<float*>(da_part);
-  auto* da = static_cast<float*>(d_table_a);
-  auto* dbt = static_cast<float*>(d_table_b);
-  auto* dwp = static_cast<float*>(dw_part);
-  auto* dw = static_cast<float*>(d_w);
-  err = launch(a, sx, b, cx, lo, hi, base, rc, w, wt, chain, n_weights, ym,
-               gg, dap, da, dbt, dwp, dw, num_centers, p_rows, h, h_out,
-               grid_g, bk, r2, s);
+  auto* act = static_cast<float*>(acts);
+  const auto* act_off = static_cast<const long long*>(act_offsets);
+  auto* dzl = static_cast<float*>(dz_last);
+  auto* part = static_cast<float*>(dw_part);
+  float* dz0 = dzl;
+  if (n_pairs > 0) {
+    slab_mma::ChainArgs args = {};
+    args.table_a = static_cast<const float*>(table_a);
+    args.table_b = static_cast<const float*>(table_b);
+    args.weights_t = wt;
+    args.pair_k = static_cast<const int*>(pair_k);
+    args.pair_j = static_cast<const int*>(pair_j);
+    args.n_pairs = n_pairs;
+    args.h = h;
+    args.h_out = h_out;
+    args.chain = chain;
+    args.y_max = static_cast<const float*>(y_max);
+    args.g = static_cast<const float*>(g);
+    args.dz_last = dzl;
+    args.acts = act;
+    for (int l = 0; l < n_layers; ++l) args.act_off[l] = act_off[l];
+    err = slab_mma::launch_chain<false, true>(args, device, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_layers > 0) {
+    const int last = n_layers - 1;
+    const int din = chain.din[last], dout = chain.dout[last];
+    const float* x_prev = act + act_off[last];
+    float* dz_cur = static_cast<float*>(dz_a);
+    float* dz_next = static_cast<float*>(dz_b);
+    if (n_pairs > 0) {
+      const size_t smem = sizeof(int) * 2 * kWarps * dout;
+      err = cudaFuncSetAttribute(sparse_dy_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      sparse_dy_kernel<<<(n_pairs + kWarps - 1) / kWarps, kThreads, smem,
+                         s>>>(dzl, wt + chain.w_off[last], x_prev, dz_cur,
+                              n_pairs, din, dout);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    {
+      // rows per block: at most kDwRowsMax, and [rows, dout + 1] floats
+      // must fit in shared memory
+      int rows = (int)(slab_mma::kMaxSmem / sizeof(float)) / (dout + 1);
+      rows = rows < kDwRowsMax ? rows : kDwRowsMax;
+      if (dout > 2 * 32 * kWarps || rows <= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const int blocks_i = (din + rows - 1) / rows;
+      rows = (din + blocks_i - 1) / blocks_i;
+      const size_t smem = sizeof(float) * rows * (dout + 1);
+      err = cudaFuncSetAttribute(sparse_dw_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      sparse_dw_kernel<<<dim3(blocks_i, n_parts), kThreads, smem, s>>>(
+          dzl, x_prev, part, n_weights, chain.w_off[last], chain.b_off[last],
+          n_pairs, din, dout, rows);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    for (int l = last - 1; l >= 0; --l) {
+      const LowerLayout lay(chain.din[l], chain.dout[l]);
+      const size_t smem = sizeof(float) * lay.total;
+      if (smem > slab_mma::kMaxSmem) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      err = cudaFuncSetAttribute(lower_bwd_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      lower_bwd_kernel<<<n_parts, kThreads, smem, s>>>(
+          dz_cur, act + act_off[l], w, dz_next, part, n_weights,
+          chain.w_off[l], chain.b_off[l], n_pairs, chain.din[l],
+          chain.dout[l]);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      float* t = dz_cur;
+      dz_cur = dz_next;
+      dz_next = t;
+    }
+    dz0 = dz_cur;
+  }
+  const size_t n_tab = (size_t)(num_centers + p_rows) * h;
+  if (n_tab > 0) {
+    table_grad_kernel<<<(unsigned)((n_tab + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(
+        dz0, static_cast<const int*>(row_ptr),
+        static_cast<const int*>(src_perm), static_cast<const int*>(src_ptr),
+        static_cast<float*>(d_table_a), static_cast<float*>(d_table_b),
+        num_centers, p_rows, h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_weights > 0) {
+    reduce_kernel<<<(n_weights + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        part, static_cast<float*>(d_w), n_weights, n_parts);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

@@ -42,6 +42,7 @@ NVCC_FLAGS = [
 MAX_LAYERS = 8  # slab::kMaxLayers in csrc/slab_chain.cuh
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _loaded = {}  # library path -> ctypes library (one load per process)
+_entries = {}  # (kernel name, symbol) -> loaded C entry point
 
 
 def local_headers(source):
@@ -124,15 +125,19 @@ def build_kernels(names=None):
 def kernel_entry(name, symbol, argtypes):
     """The C entry point ``symbol`` of kernel ``name``, returning an
     ``int`` CUDA error code.  The first use in a process builds every
-    missing kernel library at once."""
-    path = lib_path(name)
-    if path not in _loaded:
-        build_kernels()
-        _loaded[path] = ctypes.CDLL(str(path))
-    fn = getattr(_loaded[path], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    missing kernel library at once; later calls reuse the loaded entry
+    point (no source hashing per launch)."""
+    key = (name, symbol)
+    if key not in _entries:
+        path = lib_path(name)
+        if path not in _loaded:
+            build_kernels()
+            _loaded[path] = ctypes.CDLL(str(path))
+        fn = getattr(_loaded[path], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return _entries[key]
 
 
 def flat_chain(weights, compute_dtype, device, transpose=False):

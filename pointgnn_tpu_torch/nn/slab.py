@@ -19,9 +19,13 @@ weights/biases are rounded to the compute dtype, ``relu(a - b)`` is
 rounded, each layer accumulates in f32 and adds the bias in f32, and
 the activations are re-rounded between layers but not after the last.
 
-On a CUDA tensor :func:`slab_edge_max` launches the hand-written kernel
+On a CUDA tensor :func:`slab_edge_max` launches the hand-written kernels
 (``csrc/slab_edge_max.cu``) or raises; on a CPU tensor it runs
-:func:`slab_edge_max_reference`, the plain PyTorch version.
+:func:`slab_edge_max_reference`, the plain PyTorch version.  The kernels
+first build the pair list (:func:`pair_list`: every in-radius pair,
+grouped by center) and then run the chain over chunks of
+:data:`PAIR_CHUNK` pairs spread evenly over the SMs, so a crowded center
+block does not hold up the call (:func:`pair_chunks`).
 
 Training: :func:`slab_edge_max_train` is the differentiable version (the
 counterpart of the JAX ``slab_edge_max_train`` custom VJP).  Its forward
@@ -29,8 +33,9 @@ is :func:`slab_edge_max`; its backward, :func:`slab_edge_max_backward`,
 recomputes every in-radius pair's chain, routes the output cotangent to
 each pair whose output equals the per-channel max (every tied winner gets
 the full cotangent) and backpropagates through the chain.  On a CUDA
-tensor that is the kernel ``csrc/slab_edge_max_bwd.cu``; on a CPU tensor
-:func:`slab_edge_max_backward_reference`.  Coordinates and cell
+tensor that is the kernels of ``csrc/slab_edge_max_bwd.cu`` over the same
+pair list (and its source-sorted view, :func:`source_order`); on a CPU
+tensor :func:`slab_edge_max_backward_reference`.  Coordinates and cell
 metadata get no gradient.  Both kernels take their chain arithmetic from
 ``csrc/slab_chain.cuh``, so the backward's recompute equals the forward
 bit for bit.
@@ -287,27 +292,142 @@ def slab_edge_max_backward_reference(
 
 
 # ---------------------------------------------------------------------------
+# the pair list and its chunks (the kernels' work plan)
+# ---------------------------------------------------------------------------
+
+PAIR_CHUNK = 64  # pairs per chunk: slab_mma::kChunk in csrc/slab_chain.cuh
+
+
+def pair_list_reference(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
+    """Plain version of the kernels' pair list: every in-radius ``(k, j)``
+    of the walked windows, grouped by center ``k`` (CSR), rows ascending
+    within a center.  Returns ``(row_ptr [K + 1], pair_k, pair_j)``, all
+    int32."""
+    k_total = ctr_xyz.shape[0]
+    dev = src_xyz.device
+    ks, js = [], []
+    for kk, jj in _inradius_pairs(src_xyz, ctr_xyz, win_lo, win_hi, bk,
+                                  radius):
+        ks.append(kk)
+        js.append(jj)
+    kk = torch.cat(ks) if ks else torch.zeros(0, dtype=torch.int64,
+                                              device=dev)
+    jj = torch.cat(js) if js else torch.zeros(0, dtype=torch.int64,
+                                              device=dev)
+    order = torch.argsort(kk * max(src_xyz.shape[0], 1) + jj)
+    kk, jj = kk[order], jj[order]
+    counts = torch.bincount(kk, minlength=k_total)
+    row_ptr = torch.zeros(k_total + 1, dtype=torch.int64, device=dev)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    return (row_ptr.to(torch.int32), kk.to(torch.int32),
+            jj.to(torch.int32))
+
+
+def pair_list(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
+    """The CSR pair list of :func:`pair_list_reference`.  On a CUDA
+    tensor two kernels build it (``slab_pairs_launch`` in
+    ``csrc/slab_edge_max.cu``: a count pass, ``torch.cumsum``, a write
+    pass), so its order is the same on every run; on a CPU tensor it is
+    the plain version."""
+    if src_xyz.device.type == "cpu":
+        return pair_list_reference(src_xyz, ctr_xyz, win_lo, win_hi, bk,
+                                   radius)
+    dev = src_xyz.device
+    k, grid_g = ctr_xyz.shape[0], win_lo.shape[1]
+    entry = cuda_build.kernel_entry("slab_edge_max", "slab_pairs_launch",
+                                    _PAIR_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.empty(max(k, 1), dtype=torch.int32, device=dev)
+    ints = dict(dtype=torch.int32, device=dev)
+
+    def run(write, row_ptr, pair_k, pair_j):
+        rc = entry(src_xyz.data_ptr(), ctr_xyz.data_ptr(),
+                   win_lo.data_ptr(), win_hi.data_ptr(), counts.data_ptr(),
+                   row_ptr.data_ptr(), pair_k.data_ptr(), pair_j.data_ptr(),
+                   k, grid_g, bk, _radius2(radius), write, dev.index or 0,
+                   stream)
+        if rc != 0:
+            raise RuntimeError("slab pair list kernel launch failed: CUDA "
+                               "error %d" % rc)
+
+    empty = torch.zeros(1, **ints)
+    run(0, empty, empty, empty)
+    row_ptr = torch.zeros(k + 1, **ints)
+    row_ptr[1:] = torch.cumsum(counts[:k], 0)
+    n = int(row_ptr[-1])
+    pair_k = torch.empty(max(n, 1), **ints)
+    pair_j = torch.empty(max(n, 1), **ints)
+    run(1, row_ptr, pair_k, pair_j)
+    return row_ptr, pair_k[:n], pair_j[:n]
+
+
+def pair_chunks(n_pairs, chunk=PAIR_CHUNK):
+    """``[start, end)`` of every chunk of the pair list, in order: the
+    kernels cut the list into chunks of ``chunk`` pairs and hand chunk
+    ``c`` to CTA ``c mod grid``, so no CTA carries a center block's
+    skew."""
+    return [(s, min(s + chunk, n_pairs)) for s in range(0, n_pairs, chunk)]
+
+
+def source_order(pair_j, p_rows):
+    """The source-sorted view of the pair list: ``(perm, src_ptr)`` with
+    ``perm`` the pair indices in stable row order and ``src_ptr [P + 1]``
+    each row's offsets into it (int32), for a fixed-order sum per row."""
+    perm = torch.argsort(pair_j, stable=True)
+    counts = torch.bincount(pair_j.to(torch.int64), minlength=p_rows)
+    src_ptr = torch.zeros(p_rows + 1, dtype=torch.int64,
+                          device=pair_j.device)
+    src_ptr[1:] = torch.cumsum(counts, 0)
+    return perm.to(torch.int32), src_ptr.to(torch.int32)
+
+
+def pair_stats(src_xyz, ctr_xyz, offsets, center_cell, grid_g, radius,
+               halo=1, block_centers=DEFAULT_BLOCK_CENTERS):
+    """``(pairs, chunks, heaviest block's pairs)`` of a call's pair list
+    (on the inputs' device)."""
+    win_lo, win_hi = column_row_windows(
+        offsets, center_cell, grid_g, block_centers, halo
+    )
+    row_ptr, _, _ = pair_list(src_xyz, ctr_xyz, win_lo, win_hi,
+                              block_centers, radius)
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    k = counts.numel()
+    nb = -(-k // block_centers)
+    per_block = torch.zeros(nb * block_centers, dtype=torch.int64,
+                            device=counts.device)
+    per_block[:k] = counts
+    n = int(row_ptr[-1])
+    return n, len(pair_chunks(n)), int(per_block.reshape(nb, -1).sum(1)
+                                       .max()) if nb else 0
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels: launch (built and loaded by nn/cuda_build.py)
 # ---------------------------------------------------------------------------
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PAIR_ARGS = [
+    _vp, _vp, _vp, _vp,          # src_xyz, ctr_xyz, win_lo, win_hi
+    _vp, _vp, _vp, _vp,          # counts, row_ptr, pair_k, pair_j
+    _ci, _ci, _ci, _cf, _ci,     # K, grid_g, bk, r^2, write
+    _ci, _vp,                    # device index, stream
+]
 _FWD_ARGS = [
-    _vp, _vp, _vp, _vp,          # table_a, src_xyz, table_b, ctr_xyz
-    _vp, _vp,                    # win_lo, win_hi
-    _vp, _vp, _ci,               # weights, layer table (host), layers
-    _vp,                         # out
-    _ci, _ci, _ci, _ci, _ci,     # K, H, H_out, grid_g, bk
-    _cf, _ci,                    # r^2, bf16
+    _vp, _vp, _vp, _vp, _ci,     # table_a, table_b, weights^T, table, L
+    _vp, _vp, _ci,               # pair_k, pair_j, pairs
+    _vp, _ci, _ci, _ci,          # out, H, H_out, bf16
     _ci, _vp,                    # device index, stream
 ]
 _BWD_ARGS = [
-    _vp, _vp, _vp, _vp,          # table_a, src_xyz, table_b, ctr_xyz
-    _vp, _vp, _vp, _vp,          # win_lo, win_hi, win_base, row_col
-    _vp, _vp, _vp, _ci, _ci,     # weights, weights^T, table, L, n_w
+    _vp, _vp, _vp, _vp,          # table_a, table_b, weights, weights^T
+    _vp, _ci, _ci,               # layer table (host), L, n_w
+    _vp, _vp, _vp, _vp, _vp, _ci,  # pair_k, pair_j, row_ptr, perm, src_ptr, n
     _vp, _vp,                    # forward out, cotangent
-    _vp, _vp, _vp, _vp, _vp,     # da_part, d_a, d_b, dw_part, d_w
-    _ci, _ci, _ci, _ci, _ci, _ci,  # K, P, H, H_out, grid_g, bk
-    _cf,                         # r^2
+    _vp, _vp,                    # acts, act offsets (host)
+    _vp, _vp, _vp,               # dz_last, dz_a, dz_b
+    _vp, _ci,                    # dw_part, partial slots
+    _vp, _vp, _vp,               # d_a, d_b, d_w
+    _ci, _ci, _ci, _ci,          # K, P, H, H_out
     _ci, _vp,                    # device index, stream
 ]
 
@@ -353,6 +473,18 @@ def _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
         din = w.shape[1]
 
 
+def _cuda_pairs(table_a, src_xyz, ctr_xyz, offsets, center_cell, grid_g,
+                radius, halo, block_centers, name):
+    if table_a.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s"
+                         % (name, table_a.device))
+    win_lo, win_hi = column_row_windows(
+        offsets, center_cell, grid_g, block_centers, halo
+    )
+    return pair_list(src_xyz, ctr_xyz, win_lo, win_hi, block_centers,
+                     radius)
+
+
 def slab_edge_max(
     table_a,        # [P, H] float32 candidate table A (cell-sorted rows)
     src_xyz,        # [P, 4] float32 xyz + pad lane; pad rows +1e6
@@ -369,7 +501,7 @@ def slab_edge_max(
 ):
     """Fused uncapped radius search + edge MLP + per-center max;
     returns [K, H_out] float32.  ``compute_dtype`` is "bfloat16" (the
-    serving path) or "float32" (full f32, no TF32)."""
+    serving path) or "float32" (f32-accurate products)."""
     weights = [tuple(wb) for wb in weights]
     _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
                   center_cell, weights, grid_g)
@@ -378,26 +510,22 @@ def slab_edge_max(
             table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
             weights, grid_g, radius, halo, compute_dtype, block_centers,
         )
-    if table_a.device.type != "cuda":
-        raise ValueError("slab_edge_max: unsupported device %s"
-                         % table_a.device)
     cd = _compute_dtype_name(compute_dtype)
+    _, pair_k, pair_j = _cuda_pairs(table_a, src_xyz, ctr_xyz, offsets,
+                                    center_cell, grid_g, radius, halo,
+                                    block_centers, "slab_edge_max")
     k, h = table_b.shape
     h_out = _chain_out_dim(weights, h)
-    win_lo, win_hi = column_row_windows(
-        offsets, center_cell, grid_g, block_centers, halo
-    )
-    flat_w, meta_host, _ = cuda_build.flat_chain(weights, cd, table_a.device)
-    out = torch.empty((k, h_out), dtype=torch.float32, device=table_a.device)
+    flat_t, meta_host, _ = cuda_build.flat_chain(weights, cd, table_a.device,
+                                                 transpose=True)
+    out = torch.zeros((k, h_out), dtype=torch.float32, device=table_a.device)
     stream = torch.cuda.current_stream(table_a.device)
     rc = cuda_build.kernel_entry(
         "slab_edge_max", "slab_edge_max_launch", _FWD_ARGS)(
-        table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
-        ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
-        flat_w.data_ptr(), ctypes.addressof(meta_host), len(weights),
-        out.data_ptr(), k, h, h_out, grid_g, block_centers,
-        _radius2(radius), int(cd == "bfloat16"),
-        table_a.device.index or 0, stream.cuda_stream,
+        table_a.data_ptr(), table_b.data_ptr(), flat_t.data_ptr(),
+        ctypes.addressof(meta_host), len(weights), pair_k.data_ptr(),
+        pair_j.data_ptr(), pair_k.numel(), out.data_ptr(), h, h_out,
+        int(cd == "bfloat16"), table_a.device.index or 0, stream.cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("slab_edge_max kernel launch failed: CUDA "
@@ -442,34 +570,28 @@ def slab_edge_max_backward(
             weights, out, g, grid_g, radius, halo, compute_dtype,
             block_centers,
         )
-    if table_a.device.type != "cuda":
-        raise ValueError("slab_edge_max_backward: unsupported device %s"
-                         % table_a.device)
+    row_ptr, pair_k, pair_j = _cuda_pairs(
+        table_a, src_xyz, ctr_xyz, offsets, center_cell, grid_g, radius,
+        halo, block_centers, "slab_edge_max_backward")
     dev = table_a.device
     p = table_a.shape[0]
-    win_lo, win_hi = column_row_windows(
-        offsets, center_cell, grid_g, block_centers, halo
-    )
-    nb = win_lo.shape[0]
-    # each (block, column) window gets a slot of (hi - lo) partial rows
-    lens = (win_hi - win_lo).clamp(min=0).reshape(-1).to(torch.int64)
-    ends = torch.cumsum(lens, 0)
-    win_base = (ends - lens).to(torch.int32).reshape(nb, grid_g)
-    total_rows = int(ends[-1]) if ends.numel() else 0
-    ncells = grid_g * grid_g
-    cell = torch.searchsorted(
-        offsets[1:].contiguous(),
-        torch.arange(p, dtype=torch.int32, device=dev), right=True,
-    )
-    row_col = torch.where(cell < ncells, cell // grid_g,
-                          torch.full_like(cell, -1)).to(torch.int32)
+    n = pair_k.numel()
+    perm, src_ptr = source_order(pair_j, p)
     flat_w, meta_host, n_weights = cuda_build.flat_chain(weights,
                                                           "float32", dev)
     flat_t, _, _ = cuda_build.flat_chain(weights, "float32", dev,
                                          transpose=True)
+    dims = [h] + [w.shape[1] for w, _ in weights[:-1]]  # layer inputs
+    act_off = np.cumsum([0] + [n * d for d in dims[:-1]]) if weights else []
+    act_off_host = (ctypes.c_longlong * max(len(weights), 1))(
+        *[int(o) for o in act_off])
+    n_parts = torch.cuda.get_device_properties(dev).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    da_part = torch.empty(max(total_rows, 1) * h, **f32)
-    dw_part = torch.empty(max(nb * n_weights, 1), **f32)
+    acts = torch.empty(max(n * sum(dims) if weights else 0, 1), **f32)
+    dz_last = torch.empty(max(n * h_out, 1), **f32)
+    dz_a = torch.empty(max(n * max(dims), 1), **f32)
+    dz_b = torch.empty_like(dz_a)
+    dw_part = torch.empty(max(n_parts * n_weights, 1), **f32)
     d_w = torch.empty(max(n_weights, 1), **f32)
     d_a = torch.empty((p, h), **f32)
     d_b = torch.empty((k, h), **f32)
@@ -478,14 +600,14 @@ def slab_edge_max_backward(
     stream = torch.cuda.current_stream(dev)
     rc = cuda_build.kernel_entry(
         "slab_edge_max_bwd", "slab_edge_max_bwd_launch", _BWD_ARGS)(
-        table_a.data_ptr(), src_xyz.data_ptr(), table_b.data_ptr(),
-        ctr_xyz.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
-        win_base.data_ptr(), row_col.data_ptr(), flat_w.data_ptr(),
+        table_a.data_ptr(), table_b.data_ptr(), flat_w.data_ptr(),
         flat_t.data_ptr(), ctypes.addressof(meta_host), len(weights),
-        n_weights, out.data_ptr(), g.data_ptr(), da_part.data_ptr(),
-        d_a.data_ptr(), d_b.data_ptr(), dw_part.data_ptr(), d_w.data_ptr(),
-        k, p, h, h_out, grid_g, block_centers, _radius2(radius),
-        dev.index or 0, stream.cuda_stream,
+        n_weights, pair_k.data_ptr(), pair_j.data_ptr(), row_ptr.data_ptr(),
+        perm.data_ptr(), src_ptr.data_ptr(), n, out.data_ptr(),
+        g.data_ptr(), acts.data_ptr(), ctypes.addressof(act_off_host),
+        dz_last.data_ptr(), dz_a.data_ptr(), dz_b.data_ptr(),
+        dw_part.data_ptr(), n_parts, d_a.data_ptr(), d_b.data_ptr(),
+        d_w.data_ptr(), k, p, h, h_out, dev.index or 0, stream.cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("slab_edge_max_backward kernel launch failed: "

@@ -232,6 +232,80 @@ def test_backward_kernel_gives_tied_winners_full_cotangent(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the skewed frame of tests/test_torch_slab_chunks.py (one center with
+# several hundred neighbours): the pair list, K1 and K2 on the card
+# ---------------------------------------------------------------------------
+
+def _skewed(device, level, widths, tie=False):
+    from test_torch_slab_chunks import skewed_case
+
+    kw = skewed_case(30 + level, widths, level, tie=tie)
+    return {key: (v.to(device) if torch.is_tensor(v) else
+                  [(w.to(device), b.to(device)) for w, b in v]
+                  if key == "weights" else v) for key, v in kw.items()}
+
+
+SKEWED = [(0, [16, 16, 24, 32]), (1, [32, 32]), (0, [32, 64, 128, 300]),
+          (1, [300, 300])]
+
+
+@pytest.mark.parametrize("level,widths", SKEWED)
+def test_skewed_pair_list_matches_plain_enumeration(cuda, level, widths):
+    kw = _skewed(cuda, level, widths)
+    win_lo, win_hi = slab.column_row_windows(
+        kw["offsets"], kw["center_cell"], kw["grid_g"], kw["block_centers"], 1)
+    args = (kw["src_xyz"], kw["ctr_xyz"], win_lo, win_hi,
+            kw["block_centers"], kw["radius"])
+    got = slab.pair_list(*args)
+    again = slab.pair_list(*args)
+    ref = slab.pair_list_reference(*[a.cpu() if torch.is_tensor(a) else a
+                                     for a in args])
+    for x, y, z in zip(got, again, ref):
+        assert torch.equal(x, y)  # the same order on every run
+        assert torch.equal(x.cpu(), z)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("level,widths", SKEWED)
+def test_skewed_kernel_matches_plain_version(cuda, level, widths,
+                                             compute_dtype):
+    kw = dict(_skewed(cuda, level, widths), compute_dtype=compute_dtype)
+    out = slab.slab_edge_max(**kw)
+    again = slab.slab_edge_max(**kw)
+    torch.cuda.synchronize()
+    ref = slab.slab_edge_max_reference(**kw)
+    assert torch.equal(out, again)
+    rel = ((out - ref).abs() / (1 + ref.abs())).max().item()
+    assert rel <= TOL[compute_dtype], rel
+    assert torch.equal(out == 0, ref == 0) or compute_dtype == "bfloat16"
+
+
+@pytest.mark.parametrize("tie", [False, True])
+@pytest.mark.parametrize("level,widths", SKEWED)
+def test_skewed_backward_kernel_matches_plain_version(cuda, level, widths,
+                                                      tie):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(_skewed(cuda, level, widths, tie=tie), compute_dtype="float32")
+    out = slab.slab_edge_max(**kw)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    got = slab.slab_edge_max_backward(**kw, out=out, g=g)
+    again = slab.slab_edge_max_backward(**kw, out=out, g=g)
+    torch.cuda.synchronize()
+    ref_out = slab.slab_edge_max_reference(**kw)
+    ref = slab.slab_edge_max_backward_reference(**kw, out=ref_out, g=g)
+    flat = lambda r: [r[0], r[1]] + [t for wb in r[2] for t in wb]  # noqa
+    for x, y, z in zip(flat(got), flat(again), flat(ref)):
+        assert torch.equal(x, y)  # no float atomics: bitwise reproducible
+        err = (x - z).abs().max().item()
+        assert err <= BWD_TOL * (1 + z.abs().max().item()), err
+    # with g = 1 the last bias gradient counts each channel's winners
+    ones = slab.slab_edge_max_backward(**kw, out=out, g=torch.ones_like(out))
+    db_last = ones[2][-1][1]
+    assert bool((db_last >= (out > 0).sum(0).to(torch.float32)).all())
+
+
+# ---------------------------------------------------------------------------
 # the edge-list tail: K3 (edge_tail_max) and K4 (fused_edge_max)
 # ---------------------------------------------------------------------------
 
