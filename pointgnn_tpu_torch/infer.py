@@ -3,9 +3,9 @@
 Counterpart of the on-device graph paths of
 :class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True``):
 ``slab=True`` (both levels through ``slab_edge_max``), ``slab="l1"``
-(level 0 on the capped edge list through ``edge_tail_max``, level 1
+(level 0 on the capped edge list through ``fused_edge_max``, level 1
 through ``slab_edge_max``) and ``slab=False`` with ``pallas_tail`` (both
-levels on capped edge lists through ``edge_tail_max``).  Per frame the
+levels on capped edge lists through ``fused_edge_max``).  Per frame the
 host packs the points into one array; the device unpacks it, builds the
 two-level graph, runs the network, softmax, the hypothesis mask, top-k
 and the box decode; the host then folds the vertical classes and runs

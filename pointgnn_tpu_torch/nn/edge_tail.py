@@ -22,10 +22,15 @@ the bias in f32, applies ReLU and is rounded to the compute dtype, the
 last layer too; the masked max is taken in f32.  An empty chain is
 legal (``H_out = H``).
 
-On a CUDA tensor each wrapper launches its hand-written kernel
+On a CUDA tensor each wrapper launches its hand-written kernels
 (``csrc/edge_tail_max.cu``, ``csrc/fused_edge_max.cu``, sharing
 ``csrc/edge_tail.cuh``) or raises; on a CPU tensor it runs the plain
-PyTorch version.  Inference only: the TPU kernels have no backward.
+PyTorch version.  The kernels first list the valid slots as (center,
+row) pairs in center order (:func:`tail_pair_list`: a count pass,
+``torch.cumsum`` and a write pass, all on the card) and then run the
+chain over chunks of :data:`PAIR_CHUNK` pairs spread evenly over the
+SMs, so a center with many valid slots does not hold up the call.
+Inference only: the TPU kernels have no backward.
 """
 
 import ctypes
@@ -35,26 +40,31 @@ import torch
 
 from pointgnn_tpu_torch.nn import cuda_build
 from pointgnn_tpu_torch.nn.mlp import round_to
+# pairs per chunk of the plan, shared with the slab kernels
+from pointgnn_tpu_torch.nn.slab import PAIR_CHUNK  # noqa: F401
 
 NEG = -1e30
-BLOCK_CENTERS = 32   # centers per CTA; also sizes the kernels' shared memory
 ROW_CHUNK = 1 << 17  # rows in flight in the plain versions
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_TAIL_ARGS = [
-    _vp, _vp, _vp, _vp,          # gathered, table_b, valid, weights
-    _vp, _ci, _vp,               # layer table (host), layers, out
-    _ci, _ci, _ci, _ci, _ci,     # K, S, H, H_out, bk
+_PAIR_ARGS = [
+    _vp, _vp, _vp, _vp,          # valid, edges, counts, row_ptr
+    _vp, _vp, _vp,               # pair_k, pair_r, out
+    _ci, _ci, _ci, _ci, _ci,     # K, S, H_out, rows of A, write
+    _ci, _vp,                    # device index, stream
+]
+_CHAIN_ARGS = [
+    _vp, _vp, _vp, _vp, _ci,     # rows, table_b, weights^T, table, L
+    _vp, _vp, _vp, _ci,          # pair_k, pair_r, pair count, capacity
+    _vp, _ci, _ci, _ci,          # out, K, H, H_out
     _ci, _ci,                    # bf16, act_first
     _ci, _vp,                    # device index, stream
 ]
-_FUSED_ARGS = [
-    _vp, _vp, _vp, _vp, _vp,     # table_a, edges, table_b, valid, weights
-    _vp, _ci, _vp,               # layer table (host), layers, out
-    _ci, _ci, _ci, _ci, _ci,     # K, S, H, H_out, bk
-    _ci, _ci, _ci,               # rows of A, bf16, act_first
-    _ci, _vp,                    # device index, stream
-]
+# kernel name -> (pair-list entry, chain entry)
+_ENTRIES = {
+    "edge_tail_max": ("edge_tail_pairs_launch", "edge_tail_max_launch"),
+    "fused_edge_max": ("fused_edge_pairs_launch", "fused_edge_max_launch"),
+}
 
 
 def _require(name, cond, msg):
@@ -168,11 +178,116 @@ def fused_edge_max_reference(
                      apply_act_first)
 
 
-def _launch(name, symbol, argtypes, args):
-    rc = cuda_build.kernel_entry(name, symbol, argtypes)(*args)
+# ---------------------------------------------------------------------------
+# the valid-slot pair list (the kernels' work plan)
+# ---------------------------------------------------------------------------
+
+
+def tail_pair_list_reference(slot_valid, edges_src=None, n_rows_a=None):
+    """Plain version of the kernels' pair list: every valid slot ``(c,
+    s)`` as the pair ``(c, row)``, in center order and slots ascending
+    within a center, with ``row = c * S + s`` (K3's row of ``G``) or,
+    given ``edges_src``, ``clamp(src[c, s], 0, n_rows_a - 1)`` (K4's row
+    of ``A``).  Returns ``(row_ptr [K + 1], pair_k, pair_r)``, int32."""
+    k, s = slot_valid.shape
+    hit = (slot_valid > 0).reshape(-1)
+    t = torch.nonzero(hit).reshape(-1)
+    pair_k = torch.div(t, max(s, 1), rounding_mode="floor")
+    if edges_src is None:
+        pair_r = t
+    else:
+        pair_r = edges_src.reshape(-1).to(torch.int64)[t].clamp(
+            0, n_rows_a - 1)
+    row_ptr = torch.zeros(k + 1, dtype=torch.int64, device=slot_valid.device)
+    row_ptr[1:] = torch.cumsum(hit.reshape(k, s).sum(1), 0)
+    return (row_ptr.to(torch.int32), pair_k.to(torch.int32),
+            pair_r.to(torch.int32))
+
+
+def _card_pair_list(name, slot_valid, edges_src, n_rows_a, out=None):
+    """The pair list built on the card at its capacity ``K * S``, with no
+    host sync: ``(row_ptr, pair_k, pair_r)``, the pair count in
+    ``row_ptr[K]``.  Sets ``out`` (where given) to the "no value" key."""
+    dev = slot_valid.device
+    k, s = slot_valid.shape
+    entry = cuda_build.kernel_entry(name, _ENTRIES[name][0], _PAIR_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ints = dict(dtype=torch.int32, device=dev)
+    counts = torch.empty(max(k, 1), **ints)
+    row_ptr = torch.zeros(k + 1, **ints)
+    pair_k = torch.empty(max(k * s, 1), **ints)
+    pair_r = torch.empty(max(k * s, 1), **ints)
+    h_out = out.shape[1] if out is not None else 1
+
+    def run(write):
+        rc = entry(slot_valid.data_ptr(),
+                   edges_src.data_ptr() if edges_src is not None else None,
+                   counts.data_ptr(), row_ptr.data_ptr(), pair_k.data_ptr(),
+                   pair_r.data_ptr(),
+                   out.data_ptr() if out is not None else None,
+                   k, s, h_out, n_rows_a, write, dev.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError("%s pair list kernel launch failed: CUDA "
+                               "error %d" % (name, rc))
+
+    run(0)
+    torch.cumsum(counts[:k], 0, dtype=torch.int32, out=row_ptr[1:])
+    run(1)
+    return row_ptr, pair_k, pair_r
+
+
+def tail_pair_list(slot_valid, edges_src=None, n_rows_a=None):
+    """The pair list of :func:`tail_pair_list_reference`.  On a CUDA
+    tensor the kernels build it (K3's without ``edges_src``, K4's with
+    it), in the same order on every run; on a CPU tensor it is the plain
+    version."""
+    name = "edge_tail_max" if edges_src is None else "fused_edge_max"
+    _require(name, slot_valid.ndim == 2 and
+             slot_valid.dtype == torch.float32,
+             "slot_valid must be [K, S] float32")
+    if edges_src is not None:
+        _require(name, edges_src.shape == slot_valid.shape and
+                 edges_src.dtype == torch.int32 and
+                 edges_src.device == slot_valid.device,
+                 "edges_src must be [K, S] int32 beside slot_valid")
+        _require(name, n_rows_a is not None and n_rows_a > 0,
+                 "n_rows_a must be the rows of table_a")
+    if slot_valid.device.type == "cpu":
+        return tail_pair_list_reference(slot_valid, edges_src, n_rows_a)
+    row_ptr, pair_k, pair_r = _card_pair_list(
+        name, slot_valid.contiguous(),
+        None if edges_src is None else edges_src.contiguous(),
+        1 if n_rows_a is None else n_rows_a)
+    n = int(row_ptr[-1])
+    return row_ptr, pair_k[:n], pair_r[:n]
+
+
+def _tail_on_card(name, rows, table_b, slot_valid, edges_src, weights, cd,
+                  apply_act_first):
+    """Pair list, chain and max of one K3 or K4 call on the card."""
+    dev = rows.device
+    k, s = slot_valid.shape
+    h = table_b.shape[1]
+    h_out = weights[-1][0].shape[1] if weights else h
+    if k == 0 or s == 0:
+        return torch.zeros((k, h_out), dtype=torch.float32, device=dev)
+    flat_t, meta_host, _ = cuda_build.flat_chain(weights, cd, dev,
+                                                 transpose=True)
+    out = torch.empty((k, h_out), dtype=torch.float32, device=dev)
+    row_ptr, pair_k, pair_r = _card_pair_list(name, slot_valid, edges_src,
+                                              rows.shape[0], out)
+    rc = cuda_build.kernel_entry(name, _ENTRIES[name][1], _CHAIN_ARGS)(
+        rows.data_ptr(), table_b.data_ptr(), flat_t.data_ptr(),
+        ctypes.addressof(meta_host), len(weights), pair_k.data_ptr(),
+        pair_r.data_ptr(), row_ptr.data_ptr() + 4 * k, k * s,
+        out.data_ptr(), k, h, h_out, int(cd == "bfloat16"),
+        int(apply_act_first), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     if rc != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, rc))
+    return out
 
 
 def edge_tail_max(
@@ -186,7 +301,7 @@ def edge_tail_max(
     returns [K, H_out] float32.  The compute dtype is ``gathered``'s."""
     name = "edge_tail_max"
     weights = [tuple(wb) for wb in weights]
-    k, s, h, h_out = _check(name, gathered, table_b, slot_valid, weights)
+    k, s, _, _ = _check(name, gathered, table_b, slot_valid, weights)
     _require(name, gathered.shape[0] == k * s, "gathered must be [K * S, H]")
     cd = _compute_dtype(name, gathered)
     dev = gathered.device
@@ -194,15 +309,8 @@ def edge_tail_max(
         return edge_tail_max_reference(gathered, table_b, slot_valid,
                                        weights, apply_act_first)
     _require(name, dev.type == "cuda", "unsupported device %s" % dev)
-    flat_w, meta_host, _ = cuda_build.flat_chain(weights, cd, dev)
-    out = torch.empty((k, h_out), dtype=torch.float32, device=dev)
-    _launch(name, "edge_tail_max_launch", _TAIL_ARGS, (
-        gathered.data_ptr(), table_b.data_ptr(), slot_valid.data_ptr(),
-        flat_w.data_ptr(), ctypes.addressof(meta_host), len(weights),
-        out.data_ptr(), k, s, h, h_out, BLOCK_CENTERS,
-        int(cd == "bfloat16"), int(apply_act_first), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-    ))
+    out = _tail_on_card(name, gathered, table_b, slot_valid, None, weights,
+                        cd, apply_act_first)
     edge_tail_max.launches += 1
     return out
 
@@ -222,8 +330,8 @@ def fused_edge_max(
     kernel; returns [K, H_out] float32."""
     name = "fused_edge_max"
     weights = [tuple(wb) for wb in weights]
-    k, s, h, h_out = _check(name, table_a, table_b, slot_valid, weights,
-                            extra=(edges_src,))
+    k, s, _, _ = _check(name, table_a, table_b, slot_valid, weights,
+                        extra=(edges_src,))
     _require(name, edges_src.shape == (k, s) and
              edges_src.dtype == torch.int32,
              "edges_src must be [K, S] int32")
@@ -234,16 +342,8 @@ def fused_edge_max(
         return fused_edge_max_reference(table_a, table_b, edges_src,
                                         slot_valid, weights, apply_act_first)
     _require(name, dev.type == "cuda", "unsupported device %s" % dev)
-    flat_w, meta_host, _ = cuda_build.flat_chain(weights, cd, dev)
-    out = torch.empty((k, h_out), dtype=torch.float32, device=dev)
-    _launch(name, "fused_edge_max_launch", _FUSED_ARGS, (
-        table_a.data_ptr(), edges_src.data_ptr(), table_b.data_ptr(),
-        slot_valid.data_ptr(), flat_w.data_ptr(),
-        ctypes.addressof(meta_host), len(weights), out.data_ptr(),
-        k, s, h, h_out, BLOCK_CENTERS, table_a.shape[0],
-        int(cd == "bfloat16"), int(apply_act_first), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-    ))
+    out = _tail_on_card(name, table_a, table_b, slot_valid, edges_src,
+                        weights, cd, apply_act_first)
     fused_edge_max.launches += 1
     return out
 

@@ -3,10 +3,10 @@ slab and the edge-list inference paths.
 
 - :class:`PointSetPooling`: raw points -> keypoint features, through
   ``slab_edge_max`` at level 0 (slab metadata given) or through
-  ``edge_tail_max`` over the level-0 edge list (``pallas_tail``), then
+  ``fused_edge_max`` over the level-0 edge list (``pallas_tail``), then
   the output MLP.
 - :class:`GraphNetAutoCenter`: auto-offset MLP, the A/B fold of the
-  first edge-MLP layer, ``slab_edge_max`` or ``edge_tail_max`` at level
+  first edge-MLP layer, ``slab_edge_max`` or ``fused_edge_max`` at level
   1, the update MLP and the residual.
 - :class:`ClassAwarePredictor`: shared class head + per-class box heads.
 
@@ -14,12 +14,15 @@ The fold: ``concat(feat_j, x_j - x_k) @ W0 + b0 == A[j] - B[k]`` with
 ``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernels
 only gather rows of A.  The edge-list branch takes the device builder's
 blocked SRC-sentinel layout (``edge_sentinel="src"``: slot ``(c, s)``
-belongs to center ``c``, pad slots carry ``src == N``); the one row
-gather ``A[min(src, N-1)]`` is a torch op, as it was XLA's outside the
-TPU kernel.  In training (``slab["train"]`` set) the slab layers call
-the differentiable ``slab_edge_max_train``: gradients reach the kernel's
-tail weights, and through the folded tables ``W0``, ``b0``, the features
-and the auto-offset MLP; the coordinates of the radius test get none.
+belongs to center ``c``, pad slots carry ``src == N``) and calls
+``fused_edge_max``, which gathers ``A[min(src, N-1)]`` inside the
+kernel.  The JAX layer gathers with XLA and calls ``edge_tail_max``:
+the same function, but on the card the fused kernel is faster than the
+gather and ``edge_tail_max`` together (``chip_smoke.py`` phase 8).  In
+training (``slab["train"]`` set) the slab layers call the differentiable
+``slab_edge_max_train``: gradients reach the kernel's tail weights, and
+through the folded tables ``W0``, ``b0``, the features and the
+auto-offset MLP; the coordinates of the radius test get none.
 The generic segment path (``pallas_tail=False`` without slab metadata)
 is not ported: such a call raises.
 """
@@ -61,15 +64,17 @@ def _check_tail(pallas_tail, edge_sentinel, edges_src, num_centers, agg,
 
 def _tail_agg(tail, table_a, table_b, edges_src, compute_dtype):
     """The per-center max of the edge MLP's tail over the blocked edge
-    list: gather ``A[min(src, N-1)]``, mask the sentinel slots, K3."""
+    list: mask the sentinel slots, then K4, which gathers ``A[min(src,
+    N-1)]`` inside the kernel (the same output as the gather followed by
+    K3, bit for bit, without the ``[K * S, H]`` row table)."""
     cd = mlp.as_compute_dtype(compute_dtype) or torch.float32
     n, k = table_a.shape[0], table_b.shape[0]
-    src = edges_src.to(torch.int64)
-    gathered = table_a.to(cd).index_select(0, torch.clamp(src, max=n - 1))
-    slot_valid = (src < n).reshape(k, -1).to(torch.float32)
+    src = edges_src.to(torch.int32).reshape(k, -1).contiguous()
+    slot_valid = (src < n).to(torch.float32)
     weights = [(layer["w"], layer["b"]) for layer in tail]
-    return edge_tail.edge_tail_max(gathered, table_b.to(cd).contiguous(),
-                                   slot_valid, weights)
+    return edge_tail.fused_edge_max(table_a.to(cd).contiguous(),
+                                    table_b.to(cd).contiguous(), src,
+                                    slot_valid, weights)
 
 
 def _xyz4(xyz, mask, sentinel):

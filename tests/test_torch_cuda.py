@@ -391,11 +391,13 @@ def test_edge_tail_rejects_cpu_mixed_inputs(cuda):
         edge_tail.fused_edge_max(**k4)
 
 
-@pytest.mark.parametrize("mode,k3_per_frame,k1_per_frame", [
+@pytest.mark.parametrize("mode,k4_per_frame,k1_per_frame", [
     (False, 3, 0), ("l1", 1, 2),
 ])
-def test_edge_serving_launch_counts(cuda, mode, k3_per_frame,
+def test_edge_serving_launch_counts(cuda, mode, k4_per_frame,
                                     k1_per_frame):
+    """The edge-list layers run K4 (the gather inside the kernel), not
+    the gather and K3."""
     cfg = configs.model_config("Car", T=2)
     spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
                                num_keypoints=NUM_KEYPOINTS,
@@ -407,7 +409,130 @@ def test_edge_serving_launch_counts(cuda, mode, k3_per_frame,
                   edge_tail.fused_edge_max.launches)
     cls, boxes, scores, _ = pipe.run_frame(pts)
     # T = 2: one level-0 layer and two level-1 layers
-    assert edge_tail.edge_tail_max.launches == k3 + k3_per_frame
+    assert edge_tail.fused_edge_max.launches == k4 + k4_per_frame
     assert slab.slab_edge_max.launches == k1 + k1_per_frame
-    assert edge_tail.fused_edge_max.launches == k4
+    assert edge_tail.edge_tail_max.launches == k3
     assert np.isfinite(boxes).all() and boxes.shape[1:] == (7,)
+
+
+# the edge-list tail's work plan on the card: valid-slot patterns of
+# tests/test_torch_edge_tail_chunks.py (front-packed, holes, none valid;
+# a center with every slot valid, one with none)
+
+
+def _tail_case_on(cuda, pattern, chain, compute_dtype, seed=3):
+    from test_torch_edge_tail_chunks import CHAINS, tail_case
+
+    h, widths = CHAINS[chain]
+    k3, k4 = tail_case(seed, pattern, h, widths, compute_dtype=compute_dtype)
+
+    def move(kw):
+        return {key: ([tuple(t.to(cuda) for t in wb) for wb in val]
+                      if key == "weights" else val.to(cuda).contiguous())
+                for key, val in kw.items()}
+
+    return move(k3), move(k4)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chain", ["car_l0", "car_l1", "odd"])
+@pytest.mark.parametrize("pattern", ["front_packed", "holes",
+                                     "all_invalid"])
+def test_edge_tail_kernels_on_slot_patterns(cuda, pattern, chain,
+                                            compute_dtype):
+    k3, k4 = _tail_case_on(cuda, pattern, chain, compute_dtype)
+    out3 = edge_tail.edge_tail_max(**k3)
+    out4 = edge_tail.fused_edge_max(**k4)
+    again = edge_tail.edge_tail_max(**k3)
+    torch.cuda.synchronize()
+    ref = edge_tail.edge_tail_max_reference(**k3)
+    assert torch.equal(ref, edge_tail.fused_edge_max_reference(**k4))
+    for out in (out3, out4):
+        assert out.shape == ref.shape
+        rel = ((out - ref).abs() / (1 + ref.abs())).max().item()
+        assert rel <= TOL[compute_dtype], rel
+    # one chain per pair in a fixed order: K4 is K3, and runs repeat
+    assert torch.equal(out3, out4)
+    assert torch.equal(out3, again)
+    empty = k3["slot_valid"].sum(1) == 0
+    assert (out3[empty] == 0).all()
+    if pattern == "all_invalid":
+        assert (out3 == 0).all()
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["odd_width", "unaligned_rows"])
+def test_edge_tail_kernels_with_scalar_row_loads(cuda, case, compute_dtype):
+    """Rows the kernels cannot read 4 values a load: a width that is not a
+    multiple of 4, or tables whose rows start off an 8-byte boundary (a
+    contiguous view one value into its storage)."""
+    chain = "odd" if case == "odd_width" else "car_l0"
+    k3, k4 = _tail_case_on(cuda, "holes", chain, compute_dtype)
+    if case == "unaligned_rows":
+        def shifted(t):
+            flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
+            return flat[1:].view(t.shape)
+
+        k3["gathered"] = shifted(k3["gathered"])
+        k3["table_b"] = k4["table_b"] = shifted(k3["table_b"])
+        k4["table_a"] = shifted(k4["table_a"])
+        assert k3["table_b"].data_ptr() % 8 != 0
+    out3 = edge_tail.edge_tail_max(**k3)
+    out4 = edge_tail.fused_edge_max(**k4)
+    torch.cuda.synchronize()
+    ref = edge_tail.edge_tail_max_reference(**k3)
+    rel = ((out3 - ref).abs() / (1 + ref.abs())).max().item()
+    assert rel <= TOL[compute_dtype], rel
+    assert torch.equal(out3, out4)
+
+
+@pytest.mark.parametrize("pattern", ["front_packed", "holes",
+                                     "all_invalid"])
+def test_edge_tail_signed_empty_chain(cuda, pattern):
+    """No chain and no first ReLU: the outputs are rnd(row - B), signed;
+    every step is elementwise, so the kernels equal the plain version
+    bitwise, negative maxima included, and empty centers get 0."""
+    k3, k4 = _tail_case_on(cuda, pattern, "empty", "bfloat16", seed=4)
+    out3 = edge_tail.edge_tail_max(**k3, apply_act_first=False)
+    out4 = edge_tail.fused_edge_max(**k4, apply_act_first=False)
+    torch.cuda.synchronize()
+    ref = edge_tail.edge_tail_max_reference(**k3, apply_act_first=False)
+    assert torch.equal(out3, ref) and torch.equal(out4, ref)
+    empty = k3["slot_valid"].sum(1) == 0
+    assert (out3[empty] == 0).all()
+    if pattern != "all_invalid":
+        assert (out3[~empty] < 0).any()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("pattern", ["front_packed", "holes",
+                                     "all_invalid"])
+def test_edge_tail_pair_list_kernel_matches_plain(cuda, pattern, fused):
+    k3, k4 = _tail_case_on(cuda, pattern, "car_l1", "bfloat16")
+    args = (k3["slot_valid"], k4["edges_src"] if fused else None,
+            k4["table_a"].shape[0])
+    got = edge_tail.tail_pair_list(*args)
+    again = edge_tail.tail_pair_list(*args)
+    want = edge_tail.tail_pair_list_reference(*args)
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_edge_tail_on_the_device_builders_edge_list(cuda):
+    """K3 and K4 on a real capped edge list (front-packed valid slots),
+    with the car level-0 chain in bf16: the kernel-built pair list is the
+    plain one, and K4 equals K3."""
+    graph = _edge_graph(cuda)
+    k3, k4 = _tail_call(graph, 0, [32, 64, 128, 300], torch.bfloat16, cuda)
+    n = k4["table_a"].shape[0]
+    for edges in (None, k4["edges_src"]):
+        got = edge_tail.tail_pair_list(k3["slot_valid"], edges, n)
+        want = edge_tail.tail_pair_list_reference(k3["slot_valid"], edges, n)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    out3 = edge_tail.edge_tail_max(**k3)
+    out4 = edge_tail.fused_edge_max(**k4)
+    torch.cuda.synchronize()
+    ref = edge_tail.edge_tail_max_reference(**k3)
+    assert torch.equal(out3, out4)
+    rel = ((out3 - ref).abs() / (1 + ref.abs())).max().item()
+    assert rel <= TOL["bfloat16"], rel
