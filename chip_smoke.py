@@ -5,7 +5,9 @@
 
 Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
 
-1. prints the card's name and power limit and builds the CUDA kernels
+1. prints the card's name and power limit, builds the host library
+   (merge-NMS and PNG row unfiltering, ``pointgnn_tpu_torch/csrc/host/``,
+   the host C++ compiler) and the CUDA kernels
    (``pointgnn_tpu_torch/csrc/slab_edge_max.cu``,
    ``slab_edge_max_bwd.cu``, ``edge_tail_max.cu`` and
    ``fused_edge_max.cu``, one nvcc each, started together, sm_90a), with
@@ -61,7 +63,26 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
    of the network, and by CUDA kernel;
 10. compares the edge-list model on the card with the CPU on a small
     frame, in f32: edge lists bitwise, outputs within 1e-3;
-11. prints one ``{"kernels": [...]}`` line and, last, the
+11. serves a synthetic KITTI tree (8 frames at the tool's size,
+    ``utils/synthetic_kitti.py``) with ``run_torch.py --fast`` in a
+    subprocess, as a user does, from a port checkpoint of car_auto_T3 at
+    full width (random weights from seed 0): exit 0, one label file per
+    frame, every line 16 fields with a class of the config's label map,
+    4 K1 launches a frame (the CLI prints its launch counts); prints
+    ``run_dataset``'s buckets per frame and the ratio of ``total`` to the
+    sum of the others (``stream`` overlaps them); then, on frame 0 at
+    the CLI's spec (32768 points, 16384 keypoints), holds every K1 launch
+    of one ``device_fn`` against the plain version on the inputs the
+    model gives it (``BF16_TOL``; level 0's and level 1's pair lists
+    against the plain enumeration), times the packed frame's copy to the
+    card and the PNG decode of the frame's image written with each row
+    filter, times how much of the device program is left when
+    ``device_fn`` returns (K1 reads its pair count on the host), and
+    holds the native merge-NMS against the numpy loop in all four
+    variants (classes equal, boxes within 1e-12, scores rtol 1e-7),
+    printing both times; serves the tree again in-process, warm, and
+    checks that it writes the CLI's files;
+12. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -1553,6 +1574,307 @@ def edge_cpu_parity_phase(report, device):
           % (dp, de), flush=True)
 
 
+KITTI_FRAMES = 8
+KITTI_BUCKETS = ("fetch input", "gen graph", "gnn inference", "nms", "total")
+NMS_VARIANTS = ("nms_boxes_3d", "nms_boxes_3d_uncertainty",
+                "nms_boxes_3d_merge_only", "nms_boxes_3d_score_only")
+
+
+def _python_overlap(single, boxes):
+    """The same overlap under another identity: the numpy NMS loop."""
+    from pointgnn_tpu_torch.postprocess import iou
+
+    return iou.overlapped_boxes_3d(single, boxes)
+
+
+def capture_slab_inputs(pipe, packed):
+    """Run ``device_fn`` on ``packed`` and record the arguments of every
+    ``slab_edge_max`` call as the layers give them (level 0 first)."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import layers
+
+    calls = []
+    orig = layers._slab_agg
+
+    def recording(tail, table_a, src4, table_b, ctr4, meta, compute_dtype):
+        cd = layers.mlp.as_compute_dtype(compute_dtype) or torch.float32
+        calls.append(dict(
+            table_a=table_a.clone(), src_xyz=src4.clone(),
+            table_b=table_b.clone(), ctr_xyz=ctr4.clone(),
+            offsets=meta["offsets"].clone(),
+            center_cell=meta["center_cell"].clone(),
+            weights=[(layer["w"], layer["b"]) for layer in tail],
+            grid_g=meta["grid_g"], radius=meta["radius"],
+            halo=meta.get("halo", 1),
+            compute_dtype=str(cd).replace("torch.", "")))
+        return orig(tail, table_a, src4, table_b, ctr4, meta, compute_dtype)
+
+    layers._slab_agg = recording
+    try:
+        pipe.device_fn(pipe.params, packed)
+    finally:
+        layers._slab_agg = orig
+    return calls
+
+
+def kitti_k1_check(pipe, packed):
+    """K1 on the KITTI path's own inputs: every launch of one
+    ``device_fn`` on ``packed`` (the CLI's spec, its checkpoint) held
+    against the plain version, and the pair list of level 0 and of the
+    first level-1 layer against the plain enumeration."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import slab
+
+    calls = capture_slab_inputs(pipe, packed)
+    check(len(calls) == 4, "device_fn made %d slab calls, want 4"
+          % len(calls))
+    rows = []
+    for i, args in enumerate(calls):
+        out = slab.slab_edge_max(**args)
+        torch.cuda.synchronize()
+        ref = slab.slab_edge_max_reference(**args)
+        check(out.shape == ref.shape, "KITTI K1 call %d: shape %s vs %s"
+              % (i, tuple(out.shape), tuple(ref.shape)))
+        check(bool(torch.isfinite(out).all()),
+              "KITTI K1 call %d: non-finite" % i)
+        err = (out - ref).abs()
+        rel = (err / (1.0 + ref.abs())).max().item()
+        check(rel <= BF16_TOL, "KITTI K1 call %d: kernel vs plain %.3g > "
+              "%.3g" % (i, rel, BF16_TOL))
+        row = dict(P=args["table_a"].shape[0], K=args["table_b"].shape[0],
+                   compute_dtype=args["compute_dtype"],
+                   max_abs_err=err.max().item(), max_rel_err=rel,
+                   bf16_ulps=bf16_ulps(out, ref))
+        if i < 2:  # the level-1 layers share their slab metadata
+            row["pair_list"] = pair_list_check(args)
+        rows.append(row)
+    return rows
+
+
+def kitti_cli_phase(report, device):
+    """Phase 11: a synthetic KITTI tree served by ``run_torch.py --fast``
+    on the card (a subprocess, as a user runs it), then one frame's
+    hypotheses through the native NMS and the numpy loop."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.data import png
+    from pointgnn_tpu_torch.data.kitti import KittiDataset
+    from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import (InferencePipeline,
+                                          select_input_features)
+    from pointgnn_tpu_torch.postprocess import nms
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.utils import synthetic_kitti
+
+    work = os.path.join(HERE, "build", "chip_smoke_kitti")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, ck_dir, out_dir = (os.path.join(work, d)
+                             for d in ("kitti", "ckpt", "out"))
+    names = synthetic_kitti.main(tree, KITTI_FRAMES, n_ground=12000)
+    cfg = configs.get_config("car_auto_T3_train")
+    params = InferencePipeline(cfg, seed=0, device="cpu").params
+    ckpt.save_checkpoint(ck_dir, 0, {"params": params}, config=cfg)
+
+    cmd = [sys.executable, os.path.join(HERE, "run_torch.py"), ck_dir,
+           "--fast", "--dataset_root_dir", tree, "--output_dir", out_dir]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, "run_torch.py exited %d:\n%s\n%s" % (
+        res.returncode, res.stdout[-4000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    buckets = {}
+    for ln in lines:
+        m = re.match(r"^(.+): ([0-9.]+) ms/frame$", ln)
+        if m:
+            buckets[m.group(1)] = float(m.group(2))
+    check(set(buckets) == set(KITTI_BUCKETS),
+          "run_dataset buckets %s" % sorted(buckets))
+    launches = json.loads(lines[-1])["launches"]
+    check(launches == {"slab_edge_max": 4 * KITTI_FRAMES,
+                       "fused_edge_max": 0},
+          "run_torch.py launches %s over %d frames, want 4 slab_edge_max "
+          "a frame" % (launches, KITTI_FRAMES))
+
+    label_map = LABEL_METHODS[cfg["label_method"]][0]
+    classes = set(label_map) - {"Background", "DontCare"}
+    files = sorted(os.listdir(os.path.join(out_dir, "data")))
+    check(files == [n + ".txt" for n in names], "label files %s" % files)
+    per_frame = []
+    for name in files:
+        with open(os.path.join(out_dir, "data", name)) as f:
+            rows = [ln.split() for ln in f.read().splitlines() if ln.strip()]
+        for row in rows:
+            check(len(row) == 16, "%s: %d fields" % (name, len(row)))
+            check(row[0] in classes, "%s: class %r" % (name, row[0]))
+            check(row[1:4] == ["-1", "-1", "0"], "%s: %s" % (name, row[1:4]))
+            check(np.isfinite(np.float64(row[4:])).all(),
+                  "%s: non-finite fields" % name)
+        per_frame.append(len(rows))
+    check(sum(per_frame) > 0, "no detection in %d frames" % KITTI_FRAMES)
+    summed = sum(buckets[k] for k in KITTI_BUCKETS[:-1])
+
+    # one frame's hypotheses on the card, as the CLI's pipeline makes them
+    pipe = InferencePipeline(cfg, checkpoint_dir=ck_dir, device=device)
+    check(pipe.restored_step == 0, "restored step %d" % pipe.restored_step)
+    ds = KittiDataset(
+        os.path.join(tree, "image/training/image_2"),
+        os.path.join(tree, "velodyne/training/velodyne/"),
+        os.path.join(tree, "calib/training/calib/"),
+        os.path.join(tree, "labels/training/label_2"),
+        os.path.join(tree, "3DOP_splits/val.txt"), num_classes=4)
+    pts = ds.get_cam_points_in_image_with_rgb(0)
+    host = torch.from_numpy(db.pack_points(
+        pts.xyz, select_input_features(pts.attr, cfg["input_features"]),
+        pipe.device_spec.num_points))
+    packed = host.to(device)
+    k1 = kitti_k1_check(pipe, packed)
+    # stream copies each packed frame with a plain blocking .to(device)
+    copy = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        host.to(device)
+        torch.cuda.synchronize()
+        copy.append(1e3 * (time.perf_counter() - t0))
+    copy_ms = statistics.median(copy[1:])
+    # KITTI photographs are mostly Average and Paeth rows; the tree's
+    # images are written with None rows: decode one image written with
+    # each filter type
+    image = ds.get_image(0)
+    png_ms = {}
+    for kind in range(5):
+        data = png.encode_png(image, filter_type=kind)
+        check(np.array_equal(png.decode_png(data), image),
+              "PNG filter %d does not round-trip" % kind)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            png.decode_png(data)
+            times.append(1e3 * (time.perf_counter() - t0))
+        png_ms[kind] = statistics.median(times)
+    # how much of the device program is left when device_fn returns:
+    # slab_edge_max reads its pair count on the host, so the host waits
+    # for the card inside device_fn; only the rest can overlap host NMS
+    dispatch, whole = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pipe.device_fn(pipe.params, packed)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dispatch.append(1e3 * (t1 - t0))
+        whole.append(1e3 * (t2 - t0))
+    dispatch_ms, whole_ms = (statistics.median(dispatch[1:]),
+                             statistics.median(whole[1:]))
+    scores, sel_cls, sel_boxes, _ = (t.cpu().numpy() for t in outs)
+    keep = scores > 0
+    labels = sel_cls[keep].astype(np.int64)
+    for v in range(2, pipe.num_classes - 1, 2):
+        labels[labels == v] = v - 1
+    boxes = sel_boxes[keep].astype(np.float64)
+    probs = scores[keep].astype(np.float64)
+    kw = dict(overlapped_thres=cfg["nms_overlapped_thres"],
+              appr_factor=100.0, top_k=-1)
+    variants = {}
+    for variant in NMS_VARIANTS:
+        fn = getattr(nms, variant)
+        t0 = time.perf_counter()
+        cn, bn, sn, _ = fn(labels, boxes, probs, **kw)
+        t1 = time.perf_counter()
+        cp, bp, sp, _ = fn(labels, boxes, probs,
+                           overlapped_fn=_python_overlap, **kw)
+        t2 = time.perf_counter()
+        check(len(cn) == len(cp) and (cn == cp).all(),
+              "%s: native kept %d, numpy %d" % (variant, len(cn), len(cp)))
+        check(np.allclose(bn, bp, rtol=0, atol=1e-12),
+              "%s: boxes differ by %.3g" % (variant, abs(bn - bp).max()))
+        check(np.allclose(sn, sp, rtol=1e-7, atol=1e-9),
+              "%s: scores differ by %.3g" % (variant, abs(sn - sp).max()))
+        variants[variant] = dict(kept=int(len(cn)),
+                                 native_ms=1e3 * (t1 - t0),
+                                 python_ms=1e3 * (t2 - t1))
+
+    # the same tree again through run_dataset in this process, warm (the
+    # CLI's buckets include its first frame's one-time costs), with the
+    # KITTI conversion (projection, occlusion rescoring), which no bucket
+    # holds, timed apart
+    convert = [0.0]
+    to_kitti = pipe.detections_to_kitti
+
+    def timed_to_kitti(*args):
+        t0 = time.perf_counter()
+        out = to_kitti(*args)
+        convert[0] += time.perf_counter() - t0
+        return out
+
+    pipe.detections_to_kitti = timed_to_kitti
+    warm_dir = os.path.join(work, "warm")
+    warm = {k: 1e3 * v for k, v in
+            pipe.run_dataset(ds, warm_dir, verbose=False).items()}
+    warm_sum = sum(warm[k] for k in KITTI_BUCKETS[:-1])
+    for name in files:
+        with open(os.path.join(out_dir, "data", name)) as a, \
+                open(os.path.join(warm_dir, "data", name)) as b:
+            check(a.read() == b.read(),
+                  "%s: run_torch.py and run_dataset wrote other text" % name)
+    shutil.rmtree(work, ignore_errors=True)
+    report["kitti_cli"] = dict(
+        frames=KITTI_FRAMES, ms_per_frame=buckets, cli_seconds=cli_s,
+        total_over_bucket_sum=buckets["total"] / summed,
+        warm_ms_per_frame=warm, warm_total_over_bucket_sum=(
+            warm["total"] / warm_sum),
+        warm_kitti_conversion_ms_per_frame=1e3 * convert[0] / KITTI_FRAMES,
+        launches=launches, detections=per_frame, hypotheses=int(keep.sum()),
+        device_fn_return_ms=dispatch_ms, device_fn_done_ms=whole_ms,
+        overlap_left_share=(whole_ms - dispatch_ms) / whole_ms,
+        nms=variants, k1_on_frame0=k1, packed_copy_ms=copy_ms,
+        packed_bytes=host.numel() * host.element_size(),
+        png_decode_ms_by_filter=png_ms, image_shape=list(image.shape),
+    )
+    print("phase 11: run_torch.py --fast served %d synthetic KITTI frames "
+          "(n_ground 12000) in %.1f s: ms per frame %s; total / sum of the "
+          "other buckets %.3f; launches %s; detections %s"
+          % (KITTI_FRAMES, cli_s, buckets, buckets["total"] / summed,
+             launches, per_frame), flush=True)
+    print("phase 11: the same frames warm in this process: ms per frame "
+          "%s; total / sum of the other buckets %.3f; KITTI conversion "
+          "(in no bucket) %.3f ms per frame; label files equal the CLI's"
+          % ({k: round(v, 3) for k, v in warm.items()}, warm["total"]
+             / warm_sum, 1e3 * convert[0] / KITTI_FRAMES), flush=True)
+    print("phase 11: frame 0, %d hypotheses: device_fn returns after %.3f "
+          "ms of a %.3f ms device program (%.3f of it left to overlap the "
+          "host)" % (int(keep.sum()), dispatch_ms, whole_ms,
+                     (whole_ms - dispatch_ms) / whole_ms), flush=True)
+    for i, row in enumerate(k1):
+        print("phase 11: frame 0, K1 call %d (P=%d K=%d %s) vs plain: "
+              "max_abs_err %.3g rel %.3g (tol %.3g), %.1f bf16 ulps%s"
+              % (i, row["P"], row["K"], row["compute_dtype"],
+                 row["max_abs_err"], row["max_rel_err"], BF16_TOL,
+                 row["bf16_ulps"],
+                 "; pair list equals the plain enumeration: %d pairs, %d "
+                 "chunks" % (row["pair_list"]["pairs"],
+                             row["pair_list"]["chunks"])
+                 if "pair_list" in row else ""), flush=True)
+    print("phase 11: packed frame %d bytes, copy to the card %.3f ms; PNG "
+          "decode of a %s image by row filter (0 None .. 4 Paeth): %s ms"
+          % (host.numel() * host.element_size(), copy_ms,
+             "x".join(map(str, image.shape)),
+             {k: round(v, 3) for k, v in png_ms.items()}), flush=True)
+    for variant, row in variants.items():
+        print("phase 11: %s: native %.3f ms, numpy loop %.3f ms, %d kept "
+              "(equal: classes, boxes 1e-12, scores rtol 1e-7)"
+              % (variant, row["native_ms"], row["python_ms"], row["kept"]),
+              flush=True)
+    return launches, k1
+
+
 def main():
     import torch
 
@@ -1574,6 +1896,12 @@ def main():
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
+    from pointgnn_tpu_torch.postprocess import native
+
+    t0 = time.perf_counter()
+    host_lib = native.build_library()
+    print("phase 1: host library (NMS, PNG) %s in %.1f s"
+          % (os.path.basename(host_lib), time.perf_counter() - t0))
     built = cuda_build.build_kernels()
     report["build"] = {}
     for name, (path, build_s, log) in built.items():
@@ -1595,6 +1923,7 @@ def main():
     edge_pipe = edge_kernel_phase(report, device)
     edge = edge_serving_phase(report, device, edge_pipe)
     edge_cpu_parity_phase(report, device)
+    kitti, kitti_k1 = kitti_cli_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -1616,14 +1945,19 @@ def main():
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:573",
-        # slab serving (8 frames), training (3 steps) and "l1" serving
-        # (2 frames), each counted from 0
+        # slab serving (8 frames), training (3 steps), "l1" serving
+        # (2 frames) and run_torch.py (8 KITTI frames), each counted
+        # from 0
         "launches": (serving_launches + train_k1
-                     + edge["l1"]["launches"]["slab_edge_max"]),
+                     + edge["l1"]["launches"]["slab_edge_max"]
+                     + kitti["slab_edge_max"]),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
-            "l1_serving": edge["l1"]["launches"]["slab_edge_max"]},
-        "max_abs_err": max(lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]),
+            "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
+            "kitti_cli": kitti["slab_edge_max"]},
+        # phase 2 (car_T3 serving shapes) and phase 11 (the CLI's spec)
+        "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
+                           + [row["max_abs_err"] for row in kitti_k1]),
         # per serving frame (bf16): 1 level-0 + 3 level-1 launches
         "ms": per_frame(lv, "ms"),
         "plain_ms": per_frame(lv, "plain_ms"),
@@ -1660,7 +1994,8 @@ def main():
         ("fused_edge_max", "fused_edge_max.cu", ":103"),
     ):
         launches = {"edge_serving": edge["edges"]["launches"][name],
-                    "l1_serving": edge["l1"]["launches"][name]}
+                    "l1_serving": edge["l1"]["launches"][name],
+                    "kitti_cli": kitti.get(name, 0)}
         key = "K3" if name == "edge_tail_max" else "K4"
         lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])
                 for lvl in ("L0", "L1")}

@@ -6,11 +6,12 @@ every host helper it needs is its own copy.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU each
 kernel wrapper runs its plain PyTorch version.
 
-Implemented so far: slab serving of the two-level on-device graph
-(``infer.InferencePipeline``) and single-device training on it
-(``parallel.step.make_train_step``), carried by the hand-written
-``slab_edge_max`` kernel and its backward (``csrc/slab_edge_max.cu``,
-``csrc/slab_edge_max_bwd.cu``).
+Implemented so far: serving of the two-level on-device graph
+(``infer.InferencePipeline``: slab and edge-list paths, ``stream`` and
+``run_dataset`` over a KITTI tree, driven by ``run_torch.py``) and
+single-device training on it (``parallel.step.make_train_step``),
+carried by the hand-written CUDA kernels under ``csrc/`` and the native
+host merge-NMS (``csrc/host/nms.cpp``).
 """
 
 __version__ = "0.1.0"

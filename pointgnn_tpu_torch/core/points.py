@@ -10,3 +10,8 @@ import numpy as np
 class Points(NamedTuple):
     xyz: np.ndarray
     attr: Optional[np.ndarray] = None
+
+    def mask(self, keep: np.ndarray) -> "Points":
+        """Select a subset of points by boolean mask or index array."""
+        attr = self.attr[keep] if self.attr is not None else None
+        return Points(xyz=self.xyz[keep], attr=attr)

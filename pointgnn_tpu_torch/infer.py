@@ -1,7 +1,9 @@
 """On-device serving pipeline: points -> detections -> KITTI text.
 
 Counterpart of the on-device graph paths of
-:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True``):
+:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True``),
+with its serving surface: ``run_frame``, the pipelined ``stream`` and
+``run_dataset`` over a KITTI tree (``run_torch.py`` drives it).  Paths:
 ``slab=True`` (both levels through ``slab_edge_max``), ``slab="l1"``
 (level 0 on the capped edge list through ``fused_edge_max``, level 1
 through ``slab_edge_max``) and ``slab=False`` with ``pallas_tail`` (both
@@ -13,7 +15,12 @@ merge-NMS.  Stage times go into ``time_dict`` under the JAX pipeline's
 bucket names.
 """
 
+import collections
+import concurrent.futures
+import os
+import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -21,12 +28,14 @@ import torch
 
 from pointgnn_tpu_torch.core import boxes as box_ops
 from pointgnn_tpu_torch.core.points import Points
+from pointgnn_tpu_torch.data.kitti import KittiDataset
 from pointgnn_tpu_torch.data.labels import LABEL_METHODS
 from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.pointgnn import get_model
 from pointgnn_tpu_torch.postprocess import iou as iou_lib
 from pointgnn_tpu_torch.postprocess import nms as nms_lib
+from pointgnn_tpu_torch.train import checkpoint as ckpt
 from pointgnn_tpu_torch.utils.device import resolve_device
 
 # class-id -> KITTI name, folding horizontal/vertical pairs
@@ -87,13 +96,6 @@ def occlusion_score(box: np.ndarray, xyz: np.ndarray) -> float:
     return float(np.prod(spans / (upper - lower)))
 
 
-def _cam_points_to_image(xyz: np.ndarray, calib: Dict) -> np.ndarray:
-    """Project camera points to pixels (homogeneous scale 1)."""
-    P = calib["cam_to_image"]
-    uvw = xyz @ P[:3, :3].T + P[:3, 3]
-    return uvw / uvw[:, [2]]
-
-
 def detections_to_kitti_labels(
     label_method: str,
     class_labels: np.ndarray,
@@ -112,7 +114,9 @@ def detections_to_kitti_labels(
         return pred_labels
     corners = nms_lib.boxes_3d_to_corners(boxes_3d)
     for i in range(len(corners)):
-        xy = _cam_points_to_image(corners[i], calib)[:, :2]
+        xy = KittiDataset.cam_points_to_image(
+            Points(xyz=corners[i]), calib
+        ).xyz[:, :2]
         xmin, ymin = np.amin(xy, axis=0)
         xmax, ymax = np.amax(xy, axis=0)
         clip_xmin, clip_ymin = max(xmin, 0.0), max(ymin, 0.0)
@@ -165,12 +169,19 @@ class InferencePipeline:
     slab flags are set both ways: a spec passed in with flags set has
     them cleared where slab resolves off.  A level that is neither slab
     nor edge-list tail would need the generic segment path, which is
-    not ported: the constructor raises."""
+    not ported: the constructor raises.
+
+    ``params`` are restored from ``checkpoint_dir`` (the port's format,
+    :mod:`train.checkpoint`) when given, else drawn from ``seed``;
+    ``restored_step`` records the checkpoint's step (0 otherwise).  The
+    graph is sized by ``device_spec``: the JAX pipeline's ``capacity``
+    sizes its host-built graph, which is not ported."""
 
     def __init__(
         self,
         config: Dict,
         params=None,
+        checkpoint_dir: Optional[str] = None,
         device_spec: Optional[db.DeviceGraphSpec] = None,
         compute_dtype="bfloat16",
         seed: int = 0,
@@ -236,12 +247,23 @@ class InferencePipeline:
             **config["model_kwargs"],
         )
         self.input_features = config["input_features"]
-        if params is None:
+        self.restored_step = 0
+        if params is None and checkpoint_dir is not None:
+            state, self.restored_step = ckpt.restore_checkpoint(
+                checkpoint_dir, device=self.device
+            )
+            if state is None:
+                raise FileNotFoundError(
+                    "no checkpoint found in %s" % checkpoint_dir
+                )
+            params = state["params"] if "params" in state else state
+        elif params is None:
             params = self.model.init(
                 seed, input_feature_dim(self.input_features), self.device
             )
         self.params = params
         self.time_dict: Dict[str, float] = {}
+        self._time_lock = threading.Lock()  # stream() times off-thread
         self.overflow_counters: Dict[str, int] = {}
         self.frames_done = 0
 
@@ -282,17 +304,22 @@ class InferencePipeline:
         return topv, sel_cls, decoded, sel_xyz
 
     # ------------------------------------------------------------------
-    def _account_overflow(self, points: Points):
-        """Accumulate host-computable capacity-overflow stats and warn
-        on keypoint drop."""
-        stats = db.host_overflow_stats(points.xyz, self.device_spec)
+    def _overflow_stats(self, points: Points) -> Dict[str, int]:
+        """Host-computable capacity-overflow stats for one frame.  Pure
+        (no shared state, no warnings), so ``stream``'s background
+        worker may call it."""
+        return db.host_overflow_stats(points.xyz, self.device_spec)
+
+    def _apply_overflow_stats(self, stats: Dict[str, int], stacklevel=3):
+        """Accumulate ``stats`` into ``overflow_counters`` and warn on
+        keypoint drop.  Main thread only: ``warnings`` filter contexts
+        are not thread-safe, so an off-thread warning could escape the
+        caller's filters."""
         for key, val in stats.items():
             self.overflow_counters[key] = (
                 self.overflow_counters.get(key, 0) + int(val)
             )
         if stats["keypoints_dropped"] > 0:
-            import warnings
-
             warnings.warn(
                 "keypoint overflow: %d occupied voxels > capacity %d;"
                 " %d keypoints dropped (raise num_keypoints in the "
@@ -300,11 +327,16 @@ class InferencePipeline:
                 % (stats["voxels_occupied"], self.device_spec.num_keypoints,
                    stats["keypoints_dropped"]),
                 RuntimeWarning,
-                stacklevel=3,
+                stacklevel=stacklevel,
             )
 
+    def _account_overflow(self, points: Points):
+        # stacklevel 4: the warning points at run_frame's caller
+        self._apply_overflow_stats(self._overflow_stats(points), stacklevel=4)
+
     def _add_time(self, bucket, seconds):
-        self.time_dict[bucket] = self.time_dict.get(bucket, 0) + seconds
+        with self._time_lock:
+            self.time_dict[bucket] = self.time_dict.get(bucket, 0) + seconds
 
     def run_frame(
         self, points: Points
@@ -352,3 +384,164 @@ class InferencePipeline:
             top_k=-1,
         )
         return class_labels, boxes_3d, out_scores, aux
+
+    # ------------------------------------------------------------------
+    def stream(self, frames, depth: int = 2, raw: bool = False,
+               batch: int = 4, mesh=None):
+        """Pipelined serving over an iterable of :class:`Points`.
+
+        Yields ``(class_labels, boxes_3d, scores, aux)`` per frame, in
+        order (with ``raw=True``: the device outputs as numpy arrays,
+        without the host NMS tail).
+
+        One background worker advances ``frames`` (the dataset IO),
+        computes each frame's overflow stats and packs it, ``depth``
+        frames ahead.  The main thread applies the stats, copies the
+        packed frame to the device, runs ``device_fn``, starts copying
+        its outputs back, and runs the host NMS of the previous frame
+        while the card finishes the current one.  The card cannot run
+        far ahead: ``slab_edge_max`` reads its pair count on the host,
+        so ``device_fn`` waits for the card partway through each frame.
+
+        ``batch`` is accepted for the JAX signature and has no effect:
+        the JAX pipeline batches frames to amortize its host-to-TPU put,
+        while ``device_fn`` here runs one frame at a time and a packed
+        frame's copy to the card is small.
+
+        Buckets: ``gen graph`` (stats and packing on the worker, the copy
+        to the device), ``gnn inference`` (``device_fn`` and the wait for
+        its outputs), ``nms``.  ``mesh`` (data-parallel serving) is not
+        ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "stream(mesh=...): data-parallel serving is not ported"
+            )
+        cuda = self.device.type == "cuda"
+        it = iter(frames)
+
+        def pull():
+            # the background worker: dataset IO, stats and packing
+            for p in it:
+                t0 = time.time()
+                stats = self._overflow_stats(p)
+                host = torch.from_numpy(db.pack_points(
+                    p.xyz, select_input_features(p.attr, self.input_features),
+                    self.device_spec.num_points,
+                ))
+                return host, stats, time.time() - t0
+            return None
+
+        def fetch(outs):
+            """Start copying one frame's outputs to the host."""
+            if not cuda:
+                return outs, None
+            outs = tuple(o.to("cpu", non_blocking=True) for o in outs)
+            done = torch.cuda.Event()
+            done.record()
+            return outs, done
+
+        def finish(entry):
+            (outs, done), t0 = entry, time.time()
+            if done is not None:
+                done.synchronize()
+            row = tuple(o.numpy() for o in outs)
+            t1 = time.time()
+            self._add_time("gnn inference", t1 - t0)
+            if raw:
+                self.frames_done += 1
+                return row
+            result = self._finish_frame(*row)
+            self._add_time("nms", time.time() - t1)
+            return result
+
+        pending = collections.deque()  # frames whose outputs are in flight
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            pulls = collections.deque(
+                pool.submit(pull) for _ in range(max(1, depth) + 1)
+            )
+            while pulls:
+                res = pulls.popleft().result()
+                if res is None:
+                    continue
+                pulls.append(pool.submit(pull))
+                host, stats, gen_s = res
+                self._apply_overflow_stats(stats)
+                t0 = time.time()
+                packed = host.to(self.device)
+                t1 = time.time()
+                self._add_time("gen graph", gen_s + t1 - t0)
+                pending.append(fetch(self.device_fn(self.params, packed)))
+                self._add_time("gnn inference", time.time() - t1)
+                while len(pending) > 1:
+                    yield finish(pending.popleft())
+            while pending:
+                yield finish(pending.popleft())
+
+    # ------------------------------------------------------------------
+    def detections_to_kitti(self, class_labels, boxes_3d, scores, calib,
+                            aux) -> List[Tuple]:
+        """Project to 2D, clip, truncation-filter, occlusion-rescore;
+        KITTI label tuples."""
+        return detections_to_kitti_labels(
+            self.label_method, class_labels, boxes_3d, scores, calib,
+            aux, use_box_score=self.use_box_score,
+        )
+
+    def _write_kitti_txt(self, dataset, frame_idx, output_dir, pred_labels):
+        filename = os.path.join(
+            output_dir, "data", dataset.get_filename(frame_idx) + ".txt"
+        )
+        os.makedirs(os.path.dirname(filename), exist_ok=True)
+        with open(filename, "w") as f:
+            f.write(format_kitti_lines(pred_labels))
+
+    def run_dataset(
+        self,
+        dataset,
+        output_dir: str,
+        num_frames: int = -1,
+        is_test: bool = False,
+        verbose: bool = True,
+        visualization_level: int = 0,
+    ) -> Dict[str, float]:
+        """Serve a :class:`KittiDataset` through :meth:`stream` and write
+        ``<output_dir>/data/<frame>.txt`` per frame.  Returns each
+        bucket's time per frame: ``fetch input`` (reading the frame, on
+        the stream's worker), ``gen graph``, ``gnn inference``, ``nms``
+        and ``total`` (the wall time of the loop).  ``is_test`` only
+        matters to visualization, which is not ported:
+        ``visualization_level >= 1`` raises."""
+        if visualization_level >= 1:
+            raise NotImplementedError(
+                "visualization_level >= 1 needs utils/vis.py, which is "
+                "not ported"
+            )
+        n = dataset.num_files if num_frames < 0 else num_frames
+        calibs = []
+
+        def frames_iter():
+            for i in range(n):
+                start = time.time()
+                points = dataset.get_cam_points_in_image_with_rgb(
+                    i, self.config.get("downsample_by_voxel_size")
+                )
+                calibs.append(dataset.get_calib(i))
+                self._add_time("fetch input", time.time() - start)
+                yield points
+
+        t_all = time.time()
+        for frame_idx, (cls, boxes, scores, aux) in enumerate(
+            self.stream(frames_iter())
+        ):
+            pred_labels = self.detections_to_kitti(
+                cls, boxes, scores, calibs[frame_idx], aux
+            )
+            self._write_kitti_txt(dataset, frame_idx, output_dir, pred_labels)
+        self._add_time("total", time.time() - t_all)
+        averages = {
+            k: v / max(self.frames_done, 1) for k, v in self.time_dict.items()
+        }
+        if verbose:
+            for k, v in averages.items():
+                print("%s: %.3f ms/frame" % (k, 1e3 * v))
+        return averages

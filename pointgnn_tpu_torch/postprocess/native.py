@@ -1,0 +1,148 @@
+"""Build and load the port's native host library: merge-NMS
+(``csrc/host/nms.cpp``) and PNG row unfiltering (``csrc/host/png.cpp``).
+
+At first use the host C++ compiler (``$CXX``, else ``c++``) compiles both
+sources into one shared library under ``build/torch_kernels/``, named by
+a hash of the sources, the flags and the instruction set that
+``-march=native`` selects on this machine (the compiler's predefined
+macros), so a change to any of them rebuilds it.  The library is loaded
+with ``ctypes``.  There is no fallback: a failed build or load raises
+with the compiler's output.
+
+Flags: the JAX package's (``cpp/Makefile``), ``-O3 -march=native
+-std=c++17``, plus ``-fPIC -shared``, and no ``-ffast-math``.  In C++
+GCC contracts ``a * b + c`` into one FMA by default
+(``-ffp-contract=fast``; ISO mode turns that off only for C), wherever
+the target has FMA.  ``-march=native`` is kept so that the port's NMS
+loop contracts where the JAX package's library does and equals it bit
+for bit: without it, on x86-64 the baseline target has no FMA and the
+rescored scores differ in the last bits.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_HOST = Path(__file__).resolve().parent.parent / "csrc" / "host"
+SOURCES = (_HOST / "nms.cpp", _HOST / "png.cpp")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _run(cmd):
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+    except OSError as exc:
+        raise RuntimeError("host library build: cannot run %r: %s"
+                           % (cmd[0], exc)) from exc
+    if res.returncode != 0:
+        raise RuntimeError("host library build failed (%s):\n%s%s"
+                           % (" ".join(cmd), res.stdout, res.stderr))
+    return res.stdout
+
+
+def lib_path(cxx, build_dir=BUILD_DIR):
+    """The library's path: a hash of the sources, the flags and the
+    target that ``-march=native`` means to ``cxx`` here."""
+    target = _run([cxx, "-march=native", "-E", "-dM", "-x", "c++",
+                   os.devnull])
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    h.update("".join(sorted(target.splitlines())).encode())
+    return Path(build_dir) / ("host_%s.so" % h.hexdigest()[:16])
+
+
+def build_library(cxx=None, build_dir=BUILD_DIR):
+    """Compile ``csrc/host/*.cpp`` unless their library exists; returns
+    the library's path.  Raises ``RuntimeError`` with the compiler's
+    output when the build fails or the compiler cannot be run."""
+    cxx = cxx or os.environ.get("CXX") or "c++"
+    path = lib_path(cxx, build_dir)
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # concurrent builders (test workers) each write their own file and
+    # rename it into place
+    tmp = path.with_suffix(".so.tmp%d" % os.getpid())
+    _run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)])
+    os.replace(tmp, path)
+    return path
+
+
+def get_lib():
+    """The loaded library (built at first use, once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            f64p = ctypes.POINTER(ctypes.c_double)
+            lib.pgnn_nms.restype = None
+            lib.pgnn_nms.argtypes = [
+                f64p, f64p, ctypes.POINTER(ctypes.c_int64), f64p,
+                ctypes.c_int64, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                f64p, ctypes.POINTER(ctypes.c_uint8),
+            ]
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.pgnn_png_unfilter.restype = ctypes.c_int64
+            lib.pgnn_png_unfilter.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, u8p,
+            ]
+            _lib = lib
+    return _lib
+
+
+def greedy_nms(boxes, corners, classes, scores, threshold, merge, rescore):
+    """The native greedy loop: ``boxes`` [n, 7] sorted by decreasing
+    score, ``corners`` [n, 8, 3] of the original (possibly quantized)
+    boxes, ``classes`` [n], ``scores`` [n].  Returns ``(keep, scores,
+    boxes)`` as ``postprocess.nms._greedy_nms`` does."""
+    n = len(scores)
+    boxes = np.ascontiguousarray(boxes, dtype=np.float64)
+    corners = np.ascontiguousarray(corners, dtype=np.float64)
+    classes = np.ascontiguousarray(classes, dtype=np.int64)
+    if boxes.shape != (n, 7) or corners.shape != (n, 8, 3) \
+            or classes.shape != (n,):
+        raise ValueError("greedy_nms: shapes %s %s %s for %d scores"
+                         % (boxes.shape, corners.shape, classes.shape, n))
+    out_scores = np.array(scores, dtype=np.float64, copy=True)
+    out_boxes = np.empty_like(boxes)
+    keep = np.empty((n,), dtype=np.uint8)
+
+    def dptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    get_lib().pgnn_nms(
+        dptr(boxes), dptr(corners),
+        classes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        dptr(out_scores), n, float(threshold), int(merge), int(rescore),
+        dptr(out_boxes), keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return keep.astype(bool), out_scores, out_boxes
+
+
+def png_unfilter(rows, bpp):
+    """Undo PNG row filters: ``rows`` [H, 1 + stride] uint8 (each row's
+    filter byte, then its filtered bytes) -> the image bytes [H, stride].
+    Raises ``ValueError`` on an unknown filter type."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    height, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((height, stride), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    bad = get_lib().pgnn_png_unfilter(
+        rows.ctypes.data_as(u8p), height, stride, bpp,
+        out.ctypes.data_as(u8p))
+    if bad >= 0:
+        raise ValueError("PNG row %d has unknown filter type %d"
+                         % (bad, rows[bad, 0]))
+    return out

@@ -1,23 +1,37 @@
 """Greedy 3D NMS with box merging and overlap-weighted rescoring
-(numpy; copy of :mod:`pointgnn_tpu.postprocess.nms` without its native
-fast path).
+(copy of :mod:`pointgnn_tpu.postprocess.nms`).
 
 Boxes are processed in decreasing score order; pairwise overlaps use
 the original corners; with ``merge`` overlapped same-class boxes are
 replaced by their elementwise median (including the kept box); with
 ``rescore`` the kept score grows by the removed scores weighted by
 their overlap with the merged box.
+
+With the default overlap, :func:`iou.overlapped_boxes_3d`, the greedy
+loop runs natively (``csrc/host/nms.cpp`` through
+:mod:`postprocess.native`, which raises if it cannot be built); any
+other ``overlapped_fn`` runs the numpy loop, the plain version the tests
+hold the native one against.
 """
 
 import numpy as np
 
 from pointgnn_tpu_torch.core import boxes as box_ops
-from pointgnn_tpu_torch.postprocess import iou
+from pointgnn_tpu_torch.postprocess import iou, native
 
 
 def boxes_3d_to_corners(boxes_3d: np.ndarray) -> np.ndarray:
     """[N, 7] -> [N, 8, 3] corners."""
     return box_ops.boxes_to_corners(boxes_3d)
+
+
+def bboxes_sort(classes, scores, bboxes, top_k=400, attributes=None):
+    """Sort by decreasing score, keep top_k (<=0 disables the cap)."""
+    order = np.argsort(-scores)
+    if top_k > 0:
+        order = order[:top_k]
+    attributes = attributes[order] if attributes is not None else None
+    return classes[order], scores[order], bboxes[order], attributes
 
 
 def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
@@ -27,6 +41,9 @@ def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
     corners = boxes_3d_to_corners(bboxes)
     if quantize_factor is not None:
         corners = np.int32(corners * quantize_factor).astype(np.float64)
+    if overlapped_fn is iou.overlapped_boxes_3d:
+        return native.greedy_nms(bboxes, corners, classes, scores,
+                                 nms_threshold, merge, rescore)
     n = len(scores)
     keep = np.ones(n, dtype=bool)
     for i in range(n - 1):
@@ -49,58 +66,59 @@ def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
 
 
 def _nms(class_labels, detection_boxes_3d, detection_scores,
-         overlapped_thres, overlapped_fn, appr_factor, top_k, merge,
-         rescore, quantize=False):
-    order = np.argsort(-detection_scores)
-    if top_k > 0:
-        order = order[:top_k]
-    classes = class_labels[order]
-    scores = detection_scores[order]
-    bboxes = detection_boxes_3d[order]
+         overlapped_thres, overlapped_fn, appr_factor, top_k, attributes,
+         merge, rescore, quantize=False):
+    classes, scores, bboxes, attributes = bboxes_sort(
+        class_labels, detection_scores, detection_boxes_3d, top_k=top_k,
+        attributes=attributes,
+    )
     if len(scores) == 0:
-        return classes, bboxes, scores, None
+        return classes, bboxes, scores, attributes
     keep, scores, bboxes = _greedy_nms(
         classes, scores, bboxes, overlapped_thres, overlapped_fn,
         merge, rescore, appr_factor if quantize else None,
     )
-    return classes[keep], bboxes[keep], scores[keep], None
+    attributes = attributes[keep] if attributes is not None else None
+    return classes[keep], bboxes[keep], scores[keep], attributes
 
 
 def nms_boxes_3d(class_labels, detection_boxes_3d, detection_scores,
                  overlapped_thres=0.5, overlapped_fn=iou.overlapped_boxes_3d,
-                 appr_factor=10.0, top_k=-1):
+                 appr_factor=10.0, top_k=-1, attributes=None):
     """Plain suppression over appr_factor-quantized corners."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                merge=False, rescore=False, quantize=True)
+                attributes, merge=False, rescore=False, quantize=True)
 
 
 def nms_boxes_3d_uncertainty(class_labels, detection_boxes_3d,
                              detection_scores, overlapped_thres=0.5,
                              overlapped_fn=iou.overlapped_boxes_3d,
-                             appr_factor=10.0, top_k=-1):
+                             appr_factor=10.0, top_k=-1, attributes=None):
     """Median merge + overlap-weighted rescoring (the default)."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                merge=True, rescore=True)
+                attributes, merge=True, rescore=True)
 
 
 def nms_boxes_3d_merge_only(class_labels, detection_boxes_3d,
                             detection_scores, overlapped_thres=0.5,
                             overlapped_fn=iou.overlapped_boxes_3d,
-                            appr_factor=10.0, top_k=-1):
+                            appr_factor=10.0, top_k=-1, attributes=None):
+    """Median merge without rescoring."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                merge=True, rescore=False)
+                attributes, merge=True, rescore=False)
 
 
 def nms_boxes_3d_score_only(class_labels, detection_boxes_3d,
                             detection_scores, overlapped_thres=0.5,
                             overlapped_fn=iou.overlapped_boxes_3d,
-                            appr_factor=10.0, top_k=-1):
+                            appr_factor=10.0, top_k=-1, attributes=None):
+    """Rescoring without merging."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                merge=False, rescore=True)
+                attributes, merge=False, rescore=True)
 
 
 def get_nms_fn(box_merge: bool = True, box_score: bool = True):

@@ -1,7 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels (slab_edge_max,
 its backward, edge_tail_max and fused_edge_max) against their plain
-PyTorch versions, and the launch counts of the slab, edge-list and
-"l1" serving paths and of a train step.  They import no JAX, so on a
+PyTorch versions, the launch counts of the slab, edge-list and "l1"
+serving paths and of a train step, and ``stream`` against ``run_frame``.  They import no JAX, so on a
 machine without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -126,6 +126,29 @@ def test_serving_launches_once_per_slab_layer(cuda):
     cls, boxes, scores, _ = pipe.run_frame(pts)
     assert slab.slab_edge_max.launches == before + 3  # 1 x L0 + T x L1
     assert np.isfinite(boxes).all() and boxes.shape[1:] == (7,)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_stream_on_the_card_equals_run_frame(cuda, depth):
+    """stream's worker-packed frames and asynchronous read-back give
+    run_frame's detections bit for bit (4 frames, the worker 1 or 3
+    frames ahead)."""
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS)
+    pipe = InferencePipeline(cfg, device_spec=spec, device=cuda)
+    frames = [synthetic_lidar_frame(seed=s, n_beams=32,
+                                    points_per_beam=160)[0]
+              for s in range(4)]
+    want = [pipe.run_frame(p) for p in frames]
+    before = slab.slab_edge_max.launches
+    got = list(pipe.stream(iter(frames), depth=depth))
+    assert slab.slab_edge_max.launches == before + 3 * len(frames)
+    assert len(got) == len(frames)
+    assert sum(len(w[0]) for w in want) > 0
+    for w, g in zip(want, got):
+        for a, b in zip(w[:3], g[:3]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
 # The backward kernel sums the same f32 products as the plain version in

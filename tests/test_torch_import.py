@@ -1,5 +1,6 @@
-"""The port imports with JAX blocked and pulls in nothing of
-``pointgnn_tpu``; ``chip_smoke.py`` imports neither."""
+"""The port imports with JAX, orbax, OpenCV and PIL blocked and pulls in
+nothing of ``pointgnn_tpu``; ``chip_smoke.py`` and ``run_torch.py``
+import none of them."""
 
 import ast
 import os
@@ -11,6 +12,7 @@ import textwrap
 import pointgnn_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "orbax", "cv2", "PIL")
 
 
 def _port_modules():
@@ -25,19 +27,25 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     assert "pointgnn_tpu_torch.nn.slab" in mods
     assert "pointgnn_tpu_torch.infer" in mods
+    for name in ("postprocess.native", "data.png", "data.kitti",
+                 "graph.voxel", "utils.config_io", "train.checkpoint",
+                 "utils.synthetic_kitti"):
+        assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """
         import importlib, sys
-        sys.modules["jax"] = None
-        sys.modules["jaxlib"] = None
+        for blocked in %r:
+            sys.modules[blocked] = None
         for name in %r:
             importlib.import_module(name)
+        importlib.import_module("run_torch")
         bad = sorted(m for m in sys.modules
                      if m == "pointgnn_tpu" or m.startswith("pointgnn_tpu."))
         assert not bad, bad
-        assert sys.modules.get("jax") is None
+        for blocked in %r:
+            assert sys.modules.get(blocked) is None, blocked
         print("ok", len(%r))
-        """ % (mods, mods)
+        """ % (BLOCKED, mods, BLOCKED, mods)
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
@@ -60,8 +68,9 @@ def _imported_names(path):
 
 
 def test_chip_smoke_imports_no_jax():
-    names = _imported_names(os.path.join(REPO, "chip_smoke.py"))
-    assert any(n.startswith("pointgnn_tpu_torch") for n in names)
-    for n in names:
-        root = n.split(".")[0]
-        assert root not in ("jax", "jaxlib", "pointgnn_tpu"), n
+    for script in ("chip_smoke.py", "run_torch.py"):
+        names = _imported_names(os.path.join(REPO, script))
+        assert any(n.startswith("pointgnn_tpu_torch") for n in names)
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in BLOCKED + ("pointgnn_tpu",), (script, n)
