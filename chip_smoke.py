@@ -82,7 +82,23 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     variants (classes equal, boxes within 1e-12, scores rtol 1e-7),
     printing both times; serves the tree again in-process, warm, and
     checks that it writes the CLI's files;
-12. prints one ``{"kernels": [...]}`` line and, last, the
+12. trains from the command line: ``train_torch.py`` in a subprocess on
+    a synthetic KITTI tree (8 frames with Car, Pedestrian and Cyclist),
+    car_auto_T3 at full width and depth for 4 steps (2 provider workers,
+    the shipped augmentation, a checkpoint every epoch; lr 0.0125, since
+    the shipped 0.125 diverges on this tree), then resumed from step 4 to
+    6, then ped_cyl_auto_T3 for 2 steps: exit 0, 16 K1 and 16 K2
+    launches a step (the CLI prints its counts), a finite loss every
+    step, the checkpoint of the last step; in this process, prints the
+    shipped lr's loss over 6 car steps and one car step split into K1,
+    K2 and the rest; then one ped_cyl step with every K1/K2 call
+    captured: K1 (in the step and relaunched) bitwise equal to the plain
+    forward in f32, K2 within ``BWD_TOL``, each frame's pair lists equal
+    to the plain enumeration, and K1/K2 timed at ped_cyl's shapes beside
+    their bounds; prints the median step time after the first step, the
+    time the loop waited for its prefetched batch, and the host fetch
+    time per frame;
+13. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -1875,6 +1891,347 @@ def kitti_cli_phase(report, device):
     return launches, k1
 
 
+TRAIN_CLI_FRAMES = 8
+TRAIN_CLI_N_GROUND = 12000
+TRAIN_CLI_CLASSES = ("Car", "Pedestrian", "Cyclist")
+# car_auto_T3's shipped sgd learning rate (0.125) diverges on the
+# synthetic tree at full width: the loss grows ~4-6x a step and turns NaN
+# by step 6 (the port follows the JAX step's trajectory step for step,
+# tests/test_torch_train_trajectory.py).  The car runs train at a tenth
+# of it; the shipped rate's loss per step is probed and reported.
+CAR_CLI_LR = 0.0125
+LR_PROBE_STEPS = 6
+
+
+def train_cli_configs(name):
+    """``(config, train_config)`` of a phase-12 run: the shipped ones,
+    at full width and depth."""
+    from pointgnn_tpu_torch import configs
+
+    return configs.get_config(name), configs.get_train_config(name)
+
+
+def _train_cli(work, name, tree, device, run, **overrides):
+    """One ``train_torch.py`` run in a subprocess, as a user runs it, on
+    config files written from the shipped configs with ``overrides``.
+    Returns its last JSON line, its stdout and its wall seconds."""
+    from pointgnn_tpu_torch.utils import config_io
+
+    cfg, tc = train_cli_configs(name)
+    tc.update(train_dir=os.path.join(work, name), **overrides)
+    cfg_path = os.path.join(work, "%s_%s_config" % (name, run))
+    tc_path = os.path.join(work, "%s_%s_train_config" % (name, run))
+    config_io.save_config(cfg_path, cfg)
+    config_io.save_train_config(tc_path, tc)
+    cmd = [sys.executable, os.path.join(HERE, "train_torch.py"), tc_path,
+           cfg_path, "--dataset_root_dir", tree, "--dataset_split_file",
+           os.path.join(tree, "3DOP_splits/train.txt"), "--device",
+           device.type]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, "train_torch.py (%s, %s) exited %d:\n%s\n%s"
+          % (name, run, res.returncode, res.stdout[-4000:],
+             res.stderr[-4000:]))
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    return last, res.stdout, seconds, tc
+
+
+def _check_train_run(last, stdout, tc, steps, first_step=0):
+    """Exit state of one CLI run: the steps it ran, 4 K1 and 4 K2
+    launches per frame of every step, a finite total loss every step, a
+    checkpoint at the last step."""
+    import numpy as np
+
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+
+    per_step = 4 * tc["batch_size"]  # 1 level-0 + 3 level-1 per frame
+    check(last["steps"] == steps, "ran %d steps, want %d"
+          % (last["steps"], steps))
+    check(last["launches"] == {"slab_edge_max": per_step * steps,
+                               "slab_edge_max_backward": per_step * steps},
+          "launches %s over %d steps, want %d of each a step"
+          % (last["launches"], steps, per_step))
+    if first_step:
+        check("Restored checkpoint at step %d" % first_step in stdout,
+              "the run did not resume from step %d" % first_step)
+    losses = last["total_loss"]
+    check(len(losses) == steps and all(np.isfinite(v) for v in losses),
+          "total losses %s over %d steps" % (losses, steps))
+    steps_saved = ckpt.list_checkpoint_steps(tc["train_dir"])
+    check(first_step + steps in steps_saved, "checkpoints %s, want step %d"
+          % (steps_saved, first_step + steps))
+    return dict(steps=steps, launches=last["launches"], losses=losses,
+                checkpoints=steps_saved, step_ms=last["step_ms"],
+                wait_ms=last["wait_ms"])
+
+
+def capture_train_calls(trainer, frame_indices):
+    """One train step of ``trainer`` on ``frame_indices`` with the
+    arguments of every K2 call recorded (tables, coordinates, slab
+    metadata, weights, K1's forward output and the cotangent), cloned
+    before the optimizer moves the weights."""
+    from pointgnn_tpu_torch.nn import slab
+
+    calls = []
+    orig = slab.slab_edge_max_backward
+
+    def recording(table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
+                  weights, out, g, **opts):
+        calls.append(dict(
+            table_a=table_a.detach().clone(), src_xyz=src_xyz.clone(),
+            table_b=table_b.detach().clone(), ctr_xyz=ctr_xyz.clone(),
+            offsets=offsets.clone(), center_cell=center_cell.clone(),
+            weights=[(w.detach().clone(), b.detach().clone())
+                     for w, b in weights],
+            out=out.clone(), g=g.clone(), **opts))
+        return orig(table_a, src_xyz, table_b, ctr_xyz, offsets,
+                    center_cell, weights, out, g, **opts)
+
+    recording.launches = 0  # the wrapped function counts on its name
+    slab.slab_edge_max_backward = recording
+    try:
+        trainer.train_batch(frame_indices=frame_indices)
+    finally:
+        slab.slab_edge_max_backward = orig
+    return calls
+
+
+def train_k1_k2_check(calls, num_points):
+    """Every K1 and K2 call of one step against the plain versions (f32):
+    K1's output in the step and a fresh K1 launch bitwise equal to the
+    plain forward, K2 within ``BWD_TOL`` per gradient tensor, and each
+    frame's level-0 and level-1 pair lists equal to the plain
+    enumeration.  Returns one row per call and the first level-0 and
+    level-1 call of the step (for timing)."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import slab
+
+    rows, first = [], {}
+    seen_meta = set()
+    for i, call in enumerate(calls):
+        args = {k: v for k, v in call.items()
+                if k not in ("out", "g", "block_centers")}
+        check(args.pop("compute_dtype") == "float32",
+              "K2 call %d is not f32" % i)
+        level = 0 if args["table_a"].shape[0] == num_points else 1
+        fresh = slab.slab_edge_max(**args, compute_dtype="float32")
+        torch.cuda.synchronize()
+        ref_out = slab.slab_edge_max_reference(**args,
+                                               compute_dtype="float32")
+        check(torch.equal(call["out"], ref_out),
+              "call %d (L%d): K1's output in the step is not the plain "
+              "forward (max %.3g)" % (i, level, (call["out"] - ref_out).abs()
+                                      .max().item()))
+        check(torch.equal(fresh, ref_out),
+              "call %d (L%d): K1 is not bitwise the plain forward" % (i,
+                                                                      level))
+        kw = dict(args, compute_dtype="float32")
+        got = slab.slab_edge_max_backward(**kw, out=call["out"], g=call["g"])
+        torch.cuda.synchronize()
+        ref = slab.slab_edge_max_backward_reference(**kw, out=ref_out,
+                                                    g=call["g"])
+        err = 0.0
+        for j, (x, z) in enumerate(zip(_flat_grads(got), _flat_grads(ref))):
+            check(x.shape == z.shape and bool(torch.isfinite(x).all()),
+                  "call %d (L%d) gradient %d: shape or non-finite"
+                  % (i, level, j))
+            e = (x - z).abs().max().item()
+            scale = z.abs().max().item()
+            check(e <= BWD_TOL * (1 + scale),
+                  "call %d (L%d) gradient %d: K2 vs plain %.3g > %.3g * (1 "
+                  "+ %.3g)" % (i, level, j, e, BWD_TOL, scale))
+            err = max(err, e)
+        row = dict(level=level, P=args["table_a"].shape[0],
+                   K=args["table_b"].shape[0], k2_max_abs_err=err)
+        key = (level, args["offsets"].cpu().numpy().tobytes())
+        if key not in seen_meta:  # each frame's levels, once
+            seen_meta.add(key)
+            row["pair_list"] = pair_list_check(args)
+        rows.append(row)
+        first.setdefault(level, (args, ref_out, call["g"]))
+    return rows, first
+
+
+def train_cli_phase(report, device):
+    """Phase 12: training from the command line.  ``train_torch.py``
+    trains car_auto_T3 (4 steps, then resumed to 6) and ped_cyl (2 steps)
+    on a synthetic KITTI tree with Car, Pedestrian and Cyclist; then one
+    ped_cyl step in this process with every K1/K2 call held against the
+    plain versions, and the fetch timed per frame."""
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.train import device_pipeline as dpipe
+    from pointgnn_tpu_torch.train.pipeline import DatasetSpec, FetchSpec
+    from pointgnn_tpu_torch.train.trainer import Trainer
+    from pointgnn_tpu_torch.utils import synthetic_kitti
+
+    work = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "kitti")
+    synthetic_kitti.main(tree, TRAIN_CLI_FRAMES, classes=TRAIN_CLI_CLASSES,
+                         n_ground=TRAIN_CLI_N_GROUND)
+    common = dict(save_every_epoch=1, num_load_dataset_workers=2)
+    car = "car_auto_T3_train"
+    runs = {}
+    last, out, secs, tc = _train_cli(work, car, tree, device, "first",
+                                     max_steps=4, initial_lr=CAR_CLI_LR,
+                                     **common)
+    runs["car"] = dict(_check_train_run(last, out, tc, 4), seconds=secs)
+    last, out, secs, tc = _train_cli(work, car, tree, device, "resume",
+                                     max_steps=6, initial_lr=CAR_CLI_LR,
+                                     **common)
+    runs["car_resume"] = dict(_check_train_run(last, out, tc, 2, 4),
+                              seconds=secs)
+    ped = "ped_cyl_auto_T3_trainval"
+    last, out, secs, tc = _train_cli(work, ped, tree, device, "first",
+                                     max_steps=2, **common)
+    runs["ped_cyl"] = dict(_check_train_run(last, out, tc, 2), seconds=secs)
+    k1 = sum(r["launches"]["slab_edge_max"] for r in runs.values())
+    k2 = sum(r["launches"]["slab_edge_max_backward"] for r in runs.values())
+    step_ms = runs["car"]["step_ms"][1:] + runs["car_resume"]["step_ms"][1:]
+    wait_ms = runs["car"]["wait_ms"][1:] + runs["car_resume"]["wait_ms"][1:]
+
+    def trainer_on_tree(name, tag, **overrides):
+        cfg, tc = train_cli_configs(name)
+        tc.update(train_dir=os.path.join(work, tag),
+                  num_load_dataset_workers=0, **overrides)
+        spec = DatasetSpec.from_kitti_root(
+            tree, os.path.join(tree, "3DOP_splits/train.txt"),
+            cfg["num_classes"])
+        return tc, Trainer(cfg, tc, FetchSpec(spec, cfg, tc),
+                           num_frames=TRAIN_CLI_FRAMES, device=device)
+
+    # the shipped learning rate on this tree (reported, not checked)
+    tc, trainer = trainer_on_tree(car, "probe")
+    probe = []
+    try:
+        for s in range(LR_PROBE_STEPS):
+            aux = trainer.train_batch(frame_indices=[
+                (s % 2) * 4 + i for i in range(tc["batch_size"])])
+            probe.append(float(aux["total_loss"]))
+    finally:
+        trainer.close()
+
+    # one car step on the tree's frames split into K1, K2 and the rest
+    tc, trainer = trainer_on_tree(car, "split", initial_lr=CAR_CLI_LR)
+    try:
+        batch = trainer.prepare_batch(list(range(tc["batch_size"])))
+        trainer.train_batch(prepared=batch)  # warm-up
+        state, _, split_wall, split_k1, split_k2, _ = _split_step(
+            trainer.step_fn, trainer.state, batch)
+        trainer.state = state
+    finally:
+        trainer.close()
+    split = dict(wall_ms=split_wall, K1_ms=split_k1, K2_ms=split_k2,
+                 rest_ms=split_wall - split_k1 - split_k2)
+
+    # one ped_cyl step in this process, every K1/K2 call captured
+    tc, trainer = trainer_on_tree(ped, "capture")
+    try:
+        dspec = trainer.device_spec
+        calls = capture_train_calls(trainer, list(range(tc["batch_size"])))
+    finally:
+        trainer.close()
+    per_step = 4 * tc["batch_size"]
+    check(len(calls) == per_step, "the ped_cyl step made %d K2 calls, want "
+          "%d" % (len(calls), per_step))
+    rows, first = train_k1_k2_check(calls, dspec.num_points)
+    levels = {}
+    for level, (args, ref_out, g) in sorted(first.items()):
+        kw = dict(args, compute_dtype="float32")
+        pairs = slab.inradius_pair_count(
+            args["src_xyz"], args["ctr_xyz"], args["offsets"],
+            args["center_cell"], args["grid_g"], args["radius"],
+            args["halo"])
+        winners = slab.winner_counts(**kw, out=ref_out)
+        b2 = bound(args, pairs, PEAK_F32_FLOPS, winners)
+        b1 = bound(args, pairs, PEAK_F32_FLOPS)
+        levels["L%d" % level] = dict(
+            P=args["table_a"].shape[0], K=args["table_b"].shape[0],
+            widths=[args["table_a"].shape[1]] + [
+                w.shape[1] for w, _ in args["weights"]],
+            radius=args["radius"], inradius_pairs=pairs,
+            winner_entries=winners[0], winning_pairs=winners[1],
+            K1=dict(ms=time_ms(lambda: slab.slab_edge_max(**kw), runs=5,
+                               warmup=1),
+                    plain_ms=time_ms(
+                        lambda: slab.slab_edge_max_reference(**kw), runs=3,
+                        warmup=1),
+                    bound_ms=b1[0], bound_by=b1[1]),
+            K2=dict(ms=time_ms(lambda: slab.slab_edge_max_backward(
+                        **kw, out=ref_out, g=g), runs=5, warmup=1),
+                    plain_ms=time_ms(
+                        lambda: slab.slab_edge_max_backward_reference(
+                            **kw, out=ref_out, g=g), runs=3, warmup=1),
+                    bound_ms=b2[0], bound_by=b2[1]),
+        )
+
+    # host fetch per frame (KITTI read, shipped augmentation, packing),
+    # as the provider's workers run it
+    cfg, tc = train_cli_configs(car)
+    fspec = FetchSpec(DatasetSpec.from_kitti_root(
+        tree, os.path.join(tree, "3DOP_splits/train.txt"),
+        cfg["num_classes"]), cfg, tc,
+        device_spec=dpipe.resolve_device_setup(
+            cfg, tc.get("device_graph_spec"))[0])
+    fetch = dpipe.build_device_fetch(fspec)
+    fetch_ms = []
+    for i in range(TRAIN_CLI_FRAMES):
+        t0 = time.perf_counter()
+        fetch(i, i)
+        fetch_ms.append(1e3 * (time.perf_counter() - t0))
+    shutil.rmtree(work, ignore_errors=True)
+    report["train_cli"] = dict(
+        frames=TRAIN_CLI_FRAMES, n_ground=TRAIN_CLI_N_GROUND, runs=runs,
+        launches=dict(K1=k1, K2=k2),
+        median_step_ms_after_first=statistics.median(step_ms),
+        median_wait_ms_after_first=statistics.median(wait_ms),
+        first_step_wait_ms=runs["car"]["wait_ms"][0],
+        fetch_ms_per_frame=fetch_ms,
+        median_fetch_ms_per_frame=statistics.median(fetch_ms),
+        ped_cyl_calls=rows, ped_cyl_levels=levels,
+        car_lr=CAR_CLI_LR, shipped_lr_total_loss=probe, split_step=split,
+    )
+    for key, r in runs.items():
+        print("phase 12: train_torch.py %s: %d steps in %.1f s, launches %s, "
+              "checkpoints %s, losses %s, step ms %s, wait ms %s"
+              % (key, r["steps"], r["seconds"], r["launches"],
+                 r["checkpoints"], [round(v, 5) for v in r["losses"]],
+                 [round(v, 1) for v in r["step_ms"]],
+                 [round(v, 1) for v in r["wait_ms"]]), flush=True)
+    print("phase 12: car_auto_T3 batch %d: median %.1f ms per step after "
+          "the first, the loop waited %.3f ms (median) for its prefetched "
+          "batch; fetch %.1f ms per frame (median of %d)"
+          % (tc["batch_size"], statistics.median(step_ms),
+             statistics.median(wait_ms), statistics.median(fetch_ms),
+             len(fetch_ms)), flush=True)
+    print("phase 12: one car step on the tree's frames, split: %.1f ms = K1 "
+          "%.1f + K2 %.1f + rest %.1f" % (split_wall, split_k1, split_k2,
+                                          split["rest_ms"]), flush=True)
+    print("phase 12: car_auto_T3 at the shipped lr %g (the CLI runs use "
+          "%g): total loss per step %s" % (
+              train_cli_configs(car)[1]["initial_lr"], CAR_CLI_LR, probe),
+          flush=True)
+    print("phase 12: one ped_cyl step: %d K1/K2 calls, K1 bitwise equal to "
+          "the plain forward (in the step and relaunched), K2 max_abs_err "
+          "%.3g (tol %.3g * (1 + max|plain|)); %d pair lists equal the "
+          "plain enumeration" % (
+              len(rows), max(r["k2_max_abs_err"] for r in rows), BWD_TOL,
+              sum("pair_list" in r for r in rows)), flush=True)
+    for key, lv in levels.items():
+        print("phase 12: ped_cyl %s P=%d K=%d radius %.1f pairs=%d (winner "
+              "entries %d): K1 %.3f ms plain %.3f bound %.4f (%s); K2 %.3f "
+              "ms plain %.3f bound %.4f (%s)"
+              % (key, lv["P"], lv["K"], lv["radius"], lv["inradius_pairs"],
+                 lv["winner_entries"], lv["K1"]["ms"], lv["K1"]["plain_ms"],
+                 lv["K1"]["bound_ms"], lv["K1"]["bound_by"], lv["K2"]["ms"],
+                 lv["K2"]["plain_ms"], lv["K2"]["bound_ms"],
+                 lv["K2"]["bound_by"]), flush=True)
+    return k1, k2, rows
+
+
 def main():
     import torch
 
@@ -1924,6 +2281,7 @@ def main():
     edge = edge_serving_phase(report, device, edge_pipe)
     edge_cpu_parity_phase(report, device)
     kitti, kitti_k1 = kitti_cli_phase(report, device)
+    cli_k1, cli_k2, ped_rows = train_cli_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -1940,21 +2298,22 @@ def main():
     keys = ("inradius_pairs", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
     lv, tl = report["levels"], report["train_levels"]
+    lv_ped = report["train_cli"]["ped_cyl_levels"]
     kernels = [{
         "name": "slab_edge_max",
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:573",
         # slab serving (8 frames), training (3 steps), "l1" serving
-        # (2 frames) and run_torch.py (8 KITTI frames), each counted
-        # from 0
+        # (2 frames), run_torch.py (8 KITTI frames) and train_torch.py
+        # (4 + 2 car steps, 2 ped_cyl steps), each counted from 0
         "launches": (serving_launches + train_k1
                      + edge["l1"]["launches"]["slab_edge_max"]
-                     + kitti["slab_edge_max"]),
+                     + kitti["slab_edge_max"] + cli_k1),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
-            "kitti_cli": kitti["slab_edge_max"]},
+            "kitti_cli": kitti["slab_edge_max"], "train_cli": cli_k1},
         # phase 2 (car_T3 serving shapes) and phase 11 (the CLI's spec)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
                            + [row["max_abs_err"] for row in kitti_k1]),
@@ -1969,13 +2328,21 @@ def main():
         "per_launch_train_f32": {
             key: dict(tl[key]["fwd_f32"], inradius_pairs=tl[key][
                 "inradius_pairs"]) for key in ("L0", "L1")},
+        # phase 12: one ped_cyl train step's inputs (f32, bitwise)
+        "per_launch_train_ped_cyl_f32": {
+            key: dict(lv_ped[key]["K1"], inradius_pairs=lv_ped[key][
+                "inradius_pairs"]) for key in lv_ped},
     }, {
         "name": "slab_edge_max_backward",
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max_bwd.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:1230",
-        "launches": train_k2,
-        "max_abs_err": max(tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]),
+        # training (3 steps) and train_torch.py, each counted from 0
+        "launches": train_k2 + cli_k2,
+        "launches_by_path": {"training": train_k2, "train_cli": cli_k2},
+        # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
+        "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
+                           + [r["k2_max_abs_err"] for r in ped_rows]),
         # per training frame (f32): 1 level-0 + 3 level-1 launches
         "ms": per_frame(tl, "ms"),
         "plain_ms": per_frame(tl, "plain_ms"),
@@ -1984,6 +2351,10 @@ def main():
         "library_ms": None,
         "per_launch": {key: {k: tl[key][k] for k in keys}
                        for key in ("L0", "L1")},
+        "per_launch_ped_cyl": {
+            key: dict(lv_ped[key]["K2"], inradius_pairs=lv_ped[key][
+                "inradius_pairs"], winner_entries=lv_ped[key][
+                "winner_entries"]) for key in lv_ped},
     }]
     el = report["edge_levels"]
     tail_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")

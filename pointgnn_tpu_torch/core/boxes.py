@@ -1,7 +1,7 @@
 """7-DoF 3D box geometry in KITTI camera coordinates (numpy).
 
-Copy of the parts of :mod:`pointgnn_tpu.core.boxes` that serving and
-label packing need.
+Copy of the parts of :mod:`pointgnn_tpu.core.boxes` that serving,
+label packing, augmentation and crop-paste augmentation need.
 A box is ``(x, y, z, l, h, w, yaw)``: center of the bottom face at
 ``(x, y, z)`` (camera frame: x right, y down, z forward), length ``l``
 along the heading axis, height ``h``, width ``w``, ``yaw`` about y.
@@ -62,6 +62,11 @@ def boxes_to_corners(
     return rotated + centers
 
 
+def box_to_corners(box, expand=(1.0, 1.0, 1.0)) -> np.ndarray:
+    """Single-box convenience wrapper -> [8, 3]."""
+    return boxes_to_corners(np.asarray(box)[None, :], expand)[0]
+
+
 def boxes_to_normals(
     boxes: np.ndarray, expand: Tuple[float, float, float] = (1.0, 1.0, 1.0)
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -106,6 +111,16 @@ def points_in_box(xyz, box, expand=(1.0, 1.0, 1.0)) -> np.ndarray:
     return points_in_boxes(xyz, np.asarray(box)[None, :], expand)[0]
 
 
+def points_in_box_bev(xyz, box, expand=(1.0, 1.0, 1.0)) -> np.ndarray:
+    """[N_points] mask of 2D (width/length plane) containment: the test
+    of :func:`points_in_boxes` without the height-spanning normal."""
+    normals, lower, upper = boxes_to_normals(np.asarray(box)[None, :], expand)
+    normals, lower, upper = normals[0, 1:], lower[0, 1:], upper[0, 1:]
+    projected = np.asarray(xyz, np.float64) @ normals.T
+    inside = (projected > lower) & (projected < upper)
+    return inside.all(axis=-1)
+
+
 def label_to_box(label: Dict) -> np.ndarray:
     """KITTI label dict -> [7] box array (x, y, z, l, h, w, yaw)."""
     return np.array(
@@ -120,6 +135,20 @@ def label_to_box(label: Dict) -> np.ndarray:
         ],
         dtype=np.float64,
     )
+
+
+def box_to_label(box: np.ndarray) -> Dict:
+    """[7] box -> the geometry keys of a KITTI label dict."""
+    x, y, z, l, h, w, yaw = [float(v) for v in np.asarray(box).reshape(7)]
+    return {
+        "x3d": x,
+        "y3d": y,
+        "z3d": z,
+        "length": l,
+        "height": h,
+        "width": w,
+        "yaw": yaw,
+    }
 
 
 def normalize_yaw(yaw: float) -> float:

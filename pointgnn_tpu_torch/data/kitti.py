@@ -1,5 +1,5 @@
-"""KITTI 3D-object dataset reader, the serving subset (copy of
-:mod:`pointgnn_tpu.data.kitti`).
+"""KITTI 3D-object dataset reader, the serving and training subset
+(copy of :mod:`pointgnn_tpu.data.kitti`).
 
 Velodyne ``.bin`` point loading, calibration parsing and the
 velo->rect->cam->image chain (with its sanity check), label parsing with
@@ -170,8 +170,11 @@ class KittiDataset:
             raise ValueError("%s: calibration chain mismatch" % path)
         return calib
 
-    def get_label(self, frame_idx: int) -> List[Dict]:
-        """Labels, filtered by ``difficulty`` when it is 0, 1 or 2."""
+    def get_label(self, frame_idx: int, no_orientation: bool = False
+                  ) -> List[Dict]:
+        """Labels, filtered by ``difficulty`` when it is 0, 1 or 2.
+        ``no_orientation`` is the reference's flag, accepted as the JAX
+        package accepts it: the labels keep their yaw either way."""
         path = os.path.join(self._label_dir, self._file_list[frame_idx]) + ".txt"
         out = []
         with open(path) as f:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from pointgnn_tpu_torch.graph.pad import PaddedGraph
+from pointgnn_tpu_torch.utils import thread_warnings
 
 # static packing dims for voxel keys (same as the JAX builder)
 _DX, _DY, _DZ = 1024, 128, 1024
@@ -538,9 +539,7 @@ def pack_points(xyz: np.ndarray, attr: np.ndarray, num_points: int):
     sentinel coordinates.  Warns when points beyond the capacity are
     dropped."""
     if len(xyz) > num_points:
-        import warnings
-
-        warnings.warn(
+        thread_warnings.warn(
             "point overflow: frame has %d points > device capacity %d; "
             "dropping %d (raise num_points in the DeviceGraphSpec)"
             % (len(xyz), num_points, len(xyz) - num_points),

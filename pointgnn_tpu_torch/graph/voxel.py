@@ -1,11 +1,13 @@
-"""Voxel-grid averaging (copy of the average variant of
-:mod:`pointgnn_tpu.graph.voxel`), used by
-``KittiDataset.get_cam_points`` when a config sets
-``downsample_by_voxel_size``.
+"""Voxel-grid downsampling (copy of the averaging and random variants
+of :mod:`pointgnn_tpu.graph.voxel`).  ``KittiDataset.get_cam_points``
+averages when a config sets ``downsample_by_voxel_size``; the
+augmentations ``random_voxel_downsample`` and ``dilute_background``
+keep one random point per voxel.
 
 Voxel keys come from the min-corner offset grid (floor-divide after the
 offset, optional random 3D shift of the grid); every occupied voxel
-yields the mean xyz (and attr) of its points, in key order.
+yields the mean xyz (and attr) of its points, in key order, or one of
+its original points chosen uniformly at random.
 """
 
 from typing import Optional
@@ -44,3 +46,35 @@ def voxel_downsample_average(
         sorted_attr = points.attr[order]
         attr = np.add.reduceat(sorted_attr, starts, axis=0) / counts[:, None]
     return Points(xyz=mean_xyz, attr=attr)
+
+
+def voxel_downsample_random_indices(
+    xyz: np.ndarray,
+    voxel_size: float,
+    rng: np.random.Generator,
+    add_rnd3d: bool = False,
+) -> np.ndarray:
+    """One random point index per occupied voxel ([K] indices): shuffle
+    the points, then take the first point of each voxel group in the
+    shuffled order, a uniform choice per voxel.  Draws the grid shift
+    (with ``add_rnd3d``) before the permutation."""
+    keys = _voxel_keys(xyz, voxel_size, rng if add_rnd3d else None)
+    perm = rng.permutation(len(keys))
+    order = perm[np.argsort(keys[perm], kind="stable")]
+    sorted_keys = keys[order]
+    first = np.ones(len(sorted_keys), dtype=bool)
+    first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return order[first]
+
+
+def voxel_downsample_random(
+    points: Points,
+    voxel_size: float,
+    rng: Optional[np.random.Generator] = None,
+    add_rnd3d: bool = False,
+) -> Points:
+    if rng is None:
+        rng = np.random.default_rng()
+    sel = voxel_downsample_random_indices(points.xyz, voxel_size, rng,
+                                          add_rnd3d)
+    return points.mask(sel)

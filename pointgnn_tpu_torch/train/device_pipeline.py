@@ -7,13 +7,15 @@ box targets on the device.
     device: voxel select -> slab metadata -> label assignment ->
             box encoding -> loss and gradients
 
-The port trains on the two-level slab graph only (the exact uncapped
-radius graph, the serving semantics).  The data side of the JAX
-pipeline (KITTI reader, augmentation, the prefetching fetch closure) is
-not ported yet.
+The host side is :func:`build_device_fetch`: KITTI read, crop-paste
+and the augmentation chain, then packing, with every random draw from
+the request's own seed.  The port trains on the two-level slab graph
+only (the exact uncapped radius graph, the serving semantics); training
+on device-built edge lists runs the generic segment path, which is not
+ported (``ROADMAP.md`` Queue 1 item 6).
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +25,12 @@ from pointgnn_tpu_torch.data.labels import LABEL_METHODS
 from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import device_labels as dl
 
+EDGE_LIST_TRAINING = (
+    "training on device-built edge lists (device_graph_slab: false) runs "
+    "the generic segment path, which is not ported to the PyTorch port "
+    "(ROADMAP.md Queue 1 item 6)"
+)
+
 
 class DeviceFrame(NamedTuple):
     """One frame (or a stack of frames, leading axis), ready for the
@@ -30,6 +38,57 @@ class DeviceFrame(NamedTuple):
 
     packed_points: np.ndarray   # [P, 3 + C] (device_builder.pack_points)
     labels: dl.PackedLabels
+
+
+def build_device_fetch(spec):
+    """Host fetch closure for the device pipeline (a ``FetchSpec`` with
+    ``device_spec`` set): ``fetch(frame_idx, seed) -> DeviceFrame``.
+    Reads the frame's points (with RGB) and labels, pastes crop-aug
+    samples, runs the augmentation chain, and packs points and labels;
+    every draw comes from ``np.random.default_rng(seed)`` in the JAX
+    package's order."""
+    from pointgnn_tpu_torch.data import augment
+    from pointgnn_tpu_torch.infer import select_input_features
+
+    dataset = spec.dataset.build()
+    config, train_config = spec.config, spec.train_config
+    dspec = spec.device_spec
+    aug_fn = augment.get_data_aug(
+        () if spec.is_eval else train_config.get("data_aug_configs", ())
+    )
+    sampler = None
+    if not spec.is_eval and "crop_aug" in train_config:
+        from pointgnn_tpu_torch.data.crop_aug import CropAugSampler
+
+        sampler = CropAugSampler(train_config["crop_aug"]["crop_filename"])
+    label_map, num_classes = LABEL_METHODS[config["label_method"]]
+    expend_factor = tuple(train_config.get("expend_factor", (1.0, 1.0, 1.0)))
+
+    def fetch(frame_idx: int, seed: Optional[int] = None) -> DeviceFrame:
+        rng = np.random.default_rng(seed)
+        points = dataset.get_cam_points_in_image_with_rgb(
+            frame_idx, config.get("downsample_by_voxel_size")
+        )
+        labels = dataset.get_label(frame_idx)
+        if sampler is not None:
+            points, labels = sampler.crop_aug(
+                points,
+                labels,
+                sample_rate=train_config["crop_aug"]["sample_rate"],
+                parser_kwargs=train_config["crop_aug"]["parser_kwargs"],
+                rng=rng,
+            )
+        points, labels = aug_fn(points, labels, rng=rng)
+        features = select_input_features(
+            points.attr, config["input_features"]
+        )
+        packed = db.pack_points(points.xyz, features, dspec.num_points)
+        plabels = dl.pack_frame_labels(
+            labels, label_map, num_classes, expend_factor
+        )
+        return DeviceFrame(packed, plabels)
+
+    return fetch
 
 
 def make_graph_builder(dspec, out_level: int, config):
@@ -86,13 +145,38 @@ def device_spec_for_training(config, tpu_settings: dict):
     )
 
 
-def resolve_device_setup(config, spec=None):
+def coerce_device_spec(obj):
+    """A DeviceGraphSpec from a config value: the spec itself, None, or
+    its JSON round trip (nested lists: JSON has no tuples).  The Trainer
+    freezes the resolved spec into the train_config saved beside every
+    checkpoint, so a resumed run reads it back in this form."""
+    if obj is None or isinstance(obj, db.DeviceGraphSpec):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        p, k, voxel, l0, l1, *flags = obj
+        return db.DeviceGraphSpec(
+            int(p), int(k), float(voxel),
+            db.LevelSpec(*l0), db.LevelSpec(*l1),
+            *[bool(f) for f in flags],
+        )
+    raise TypeError(
+        "device_graph_spec must be a DeviceGraphSpec or its JSON "
+        "round-trip (nested lists), got %r" % (type(obj),)
+    )
+
+
+def resolve_device_setup(config, spec=None, slab="auto"):
     """``(dspec, model_extra)`` for device-graph training: the spec (the
-    family's training spec unless given) with both slab levels on, and
-    the model's slab wiring and compute dtype (the family's setting,
-    None = f32, unless the config's model_kwargs name one)."""
+    family's training spec unless given, as a spec or its JSON round
+    trip) with both slab levels on, and the model's slab wiring and
+    compute dtype (the family's setting, None = f32, unless the config's
+    model_kwargs name one).  ``slab`` is the train_config's
+    ``device_graph_slab``: "auto" and True train on the slab graph;
+    False raises, since edge-list training is not ported."""
+    if slab != "auto" and not slab:
+        raise NotImplementedError(EDGE_LIST_TRAINING)
     tpu = cfg_mod.tpu_settings(config["label_method"])
-    dspec = spec or device_spec_for_training(config, tpu)
+    dspec = coerce_device_spec(spec) or device_spec_for_training(config, tpu)
     dspec = dspec._replace(slab_level1=True, slab_level0=True)
     model_extra = {
         "slab_level1": db.slab_kernel_wiring(dspec.level1),

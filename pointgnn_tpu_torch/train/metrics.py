@@ -147,3 +147,31 @@ class StreamingMetrics:
                     self._classwise_loc[c, bi] / steps
                 )
         return out
+
+    def print_epoch(self, step: int, epoch: int, lr: float, seconds: float):
+        r = self.results()
+        print(
+            "STEP: %d, epoch_idx: %d, lr: %f, time cost: %f"
+            % (step, epoch, lr, seconds)
+        )
+        print(
+            "cls:%f, loc:%f, reg:%f, loss: %f"
+            % (
+                r.get("cls_loss", 0.0),
+                r.get("loc_loss", 0.0),
+                r.get("reg_loss", 0.0),
+                r.get("total_loss", 0.0),
+            )
+        )
+        for c in range(self.num_classes):
+            print(
+                "Class_%d: recall=%f, prec=%f, mAP=%f, loc=%f"
+                % (
+                    c,
+                    r["recall_%d" % c],
+                    r["precision_%d" % c],
+                    r["mAP_%d" % c],
+                    r["loc_loss_cls_%d" % c],
+                )
+            )
+        return r

@@ -1,0 +1,428 @@
+"""The training loop on one card (counterpart of
+:mod:`pointgnn_tpu.train.trainer`): the epoch loop, streaming metrics,
+summaries, checkpoint and resume.
+
+Each step trains on a batch of ``batch_size`` frames on device-built
+slab graphs (graph build, label assignment and box encoding inside the
+step; per-step graph randomization), combined with the reference's
+graph-union endpoint weighting.  The epoch bookkeeping is the JAX
+package's: resume recomputes the epoch from the restored step, metrics
+reset per epoch, and checkpoints (with the frozen configs) are written
+every ``save_every_epoch`` epochs, at ``max_steps`` and at exit.
+
+Not ported: host-graph training (``device_graph: false``) and training
+on device-built edge lists (``ROADMAP.md`` Queue 1 item 6), and data
+parallelism over several cards (item 7); each raises.
+"""
+
+import collections
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from pointgnn_tpu_torch.infer import input_feature_dim
+from pointgnn_tpu_torch.model import encodings
+from pointgnn_tpu_torch.model.losses import loss_config
+from pointgnn_tpu_torch.model.pointgnn import get_model
+from pointgnn_tpu_torch.parallel import step as step_lib
+from pointgnn_tpu_torch.train import checkpoint as ckpt_lib
+from pointgnn_tpu_torch.train import device_pipeline as dpipe
+from pointgnn_tpu_torch.train import metrics as metrics_lib
+from pointgnn_tpu_torch.train import optimizers as opt_lib
+from pointgnn_tpu_torch.train import summary
+from pointgnn_tpu_torch.train.pipeline import DataProvider, FetchSpec
+from pointgnn_tpu_torch.utils import thread_warnings
+from pointgnn_tpu_torch.utils.device import resolve_device
+
+HOST_GRAPH_TRAINING = (
+    "host-graph training (device_graph: false, or a config with "
+    "normalized MLPs) is not ported to the PyTorch port (ROADMAP.md "
+    "Queue 1 item 6)"
+)
+DATA_PARALLEL = (
+    "data-parallel training over %d devices (NUM_GPU x COPY_PER_GPU) is "
+    "not ported to the PyTorch port (ROADMAP.md Queue 1 item 7)"
+)
+
+
+def _all_norms_none(config: Dict) -> bool:
+    """True when every MLP normalization in the layer configs is NONE
+    (all seven shipped configs): such configs train on device-built
+    graphs unless the train_config says otherwise."""
+    for lc in config["model_kwargs"]["layer_configs"]:
+        for key, val in lc.get("kwargs", {}).items():
+            norm_key = (
+                key == "normalization_type"
+                or key.endswith("_normalization_type")
+            )
+            if norm_key and val != "NONE":
+                return False
+    return True
+
+
+def _load_opt_state(fresh, saved):
+    """Load a restored optimizer-state tree into the freshly initialized
+    one (the torch optimizers keep their parameter references)."""
+    for key, val in saved.items():
+        cur = fresh[key]
+        if isinstance(cur, torch.optim.Optimizer):
+            cur.load_state_dict(val)
+        elif isinstance(cur, dict):
+            _load_opt_state(cur, val)
+        elif isinstance(cur, list):
+            with torch.no_grad():
+                for dst, src in zip(cur, val):
+                    dst.copy_(src)
+        else:
+            fresh[key] = val
+
+
+class _Profile:
+    """A ``torch.profiler`` trace of a window of steps, written to
+    ``<profile_dir>/trace.json``."""
+
+    def __init__(self, profile_dir: str, device: torch.device):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profile_dir = profile_dir
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+
+    def stop(self):
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self.prof.export_chrome_trace(
+            os.path.join(self.profile_dir, "trace.json"))
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: Dict,
+        train_config: Dict,
+        fetch_spec: FetchSpec,
+        num_frames: int,
+        n_devices: Optional[int] = None,
+        seed: int = 0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.config = config
+        self.train_config = train_config
+        self.num_frames = num_frames
+        enc_len = encodings.get_encoding_len(config["box_encoding_method"])
+        # an explicit train_config value wins; unset, NONE-normalization
+        # configs route to the device graph
+        dg = train_config.get("device_graph")
+        if dg is None:
+            dg = _all_norms_none(config)
+            if dg:
+                print(
+                    "device_graph training auto-enabled (NONE-"
+                    "normalization config): graph construction + label "
+                    "assignment + box encoding run inside the train step"
+                )
+        if not dg:
+            raise NotImplementedError(HOST_GRAPH_TRAINING)
+        dspec, model_extra = dpipe.resolve_device_setup(
+            config,
+            spec=train_config.get("device_graph_spec"),
+            slab=train_config.get("device_graph_slab", "auto"),
+        )
+        self.device_spec = dspec
+        # freeze the resolved setup into the train_config saved beside
+        # every checkpoint, so a restart or an evaluator reads the graphs
+        # this run trained on instead of resolving them again
+        self.train_config = dict(train_config)
+        self.train_config["device_graph"] = True
+        self.train_config["device_graph_slab"] = bool(dspec.slab_level1)
+        self.train_config["device_graph_spec"] = dspec
+        self.model = get_model(config["model_name"])(
+            num_classes=config["num_classes"],
+            box_encoding_len=enc_len,
+            mode="train",
+            **model_extra,
+            **config["model_kwargs"],
+        )
+        graph_builder = dpipe.make_graph_builder(
+            dspec, self.model.output_graph_level, config
+        )
+        fetch_spec = fetch_spec._replace(device_spec=dspec)
+
+        # the reference's NUM_GPU x COPY_PER_GPU towers become
+        # min(requested, available) cards
+        requested = train_config.get("NUM_GPU", 1) * train_config.get(
+            "COPY_PER_GPU", 1
+        )
+        if n_devices is None:
+            n_devices = min(requested, torch.cuda.device_count())
+        self.n_devices = max(n_devices, 1)
+        if self.n_devices > 1:
+            raise NotImplementedError(DATA_PARALLEL % self.n_devices)
+        self.batch_size = train_config.get("batch_size", 1)
+        self.frames_per_device = self.batch_size
+
+        self.optimizer, self.lr_schedule = opt_lib.build_from_train_config(
+            train_config
+        )
+        # per-step graph randomization: the device counterpart of the
+        # reference's add_rnd3d grid shift and random point per voxel at
+        # every fetch; without it every epoch trains on one frozen graph
+        # per frame
+        graph_rnd = train_config.get(
+            "device_graph_rnd3d",
+            config["graph_gen_kwargs"].get("add_rnd3d", True),
+        )
+        self.step_fn = step_lib.make_train_step(
+            self.model,
+            self.optimizer,
+            loss_config(config),
+            graph_builder,
+            frames_per_device=self.frames_per_device,
+            with_metrics=True,
+            graph_rng_seed=seed if graph_rnd else None,
+        )
+        params = self.model.init(
+            seed, input_feature_dim(config["input_features"]), self.device
+        )
+        for t in opt_lib.param_leaves(params):
+            t.requires_grad_(True)
+        self.state = step_lib.init_train_state(params, self.optimizer)
+        self.metrics = metrics_lib.StreamingMetrics(
+            config["num_classes"], enc_len
+        )
+        load_to_mem = train_config.get("load_dataset_to_mem", True)
+        num_workers = train_config.get("num_load_dataset_workers", 0)
+        self.provider = DataProvider(
+            fetch_spec,
+            load_dataset_to_mem=load_to_mem,
+            load_dataset_every_N_time=train_config.get(
+                "load_dataset_every_N_time", 1
+            ),
+            capacity=train_config.get("capacity", 1),
+            num_workers=num_workers,
+            num_frames=num_frames,
+            preload_list=list(range(num_frames))
+            if load_to_mem and num_workers > 0 else (),
+            seed=seed,
+        )
+        self.train_dir = train_config["train_dir"]
+        self._rng = np.random.default_rng(seed)
+        # per step of train(): host wall time and the part of it the loop
+        # waited for its prefetched batch (ms), and the total loss
+        self.step_log = {"step_ms": [], "wait_ms": [], "total_loss": []}
+
+    # ------------------------------------------------------------------
+    @property
+    def global_step(self) -> int:
+        return int(self.state.step)
+
+    def restore(self) -> int:
+        """Resume from the latest checkpoint in train_dir: the step, the
+        parameters and the optimizer state."""
+        saved, step = ckpt_lib.restore_checkpoint(self.train_dir,
+                                                  device="cpu")
+        if saved is None:
+            return step
+        leaves = opt_lib.param_leaves(self.state.params)
+        with torch.no_grad():
+            for dst, src in zip(leaves, opt_lib.param_leaves(
+                    saved["params"])):
+                dst.copy_(src)
+        _load_opt_state(self.state.opt_state, saved["opt_state"])
+        self.state = self.state._replace(step=int(saved["step"]))
+        print("Restored checkpoint at step %d from %s" % (
+            step, self.train_dir
+        ))
+        return step
+
+    def save(self):
+        ckpt_lib.save_checkpoint(
+            self.train_dir,
+            self.global_step,
+            dict(self.state._asdict()),
+            config=self.config,
+            train_config=self.train_config,
+        )
+
+    # ------------------------------------------------------------------
+    def prepare_batch(self, frame_indices):
+        """Fetch, stack and copy one step's frames to the card."""
+        if len(frame_indices) != self.batch_size:
+            raise ValueError("a step takes %d frames, got %d"
+                             % (self.batch_size, len(frame_indices)))
+        frames = self.provider.provide_batch(frame_indices)
+        return dpipe.frames_to_device(dpipe.stack_frames(frames),
+                                      self.device)
+
+    def _prepare_deferred(self, frame_indices):
+        """prepare_batch for the prefetch thread: overflow warnings are
+        recorded (the warnings module's filters are not thread-safe) and
+        returned for the train loop to emit on the main thread."""
+        with thread_warnings.deferred() as entries:
+            prepared = self.prepare_batch(frame_indices)
+        return prepared, entries
+
+    def train_batch(self, frame_indices=None, prepared=None) -> Dict:
+        """One optimizer step over batch_size frames."""
+        if prepared is None:
+            prepared = self.prepare_batch(frame_indices)
+        self.state, aux = self.step_fn(self.state, prepared)
+        return aux
+
+    def train(
+        self,
+        max_epoch: Optional[int] = None,
+        max_steps: Optional[int] = None,
+        log_fn=None,
+    ):
+        """The training run.
+
+        Steps are pipelined: the loop holds up to
+        ``train_config["aux_pipeline_depth"]`` (default 4) steps' aux
+        tensors before reading the oldest on the host.  Metrics see every
+        step's aux (late), and the NaN guard fires at most ``depth``
+        steps after the event (a NaN loss poisons the parameters, so
+        every later loss is NaN too).  Depth 0 reads every step at once.
+        """
+        max_epoch = max_epoch or self.train_config.get("max_epoch", 1)
+        max_steps = (
+            max_steps
+            if max_steps is not None
+            else self.train_config.get("max_steps", -1)
+        )
+        depth = int(self.train_config.get("aux_pipeline_depth", 4))
+        # the step count, advanced by the loop as it enqueues steps
+        step_no = self.global_step
+        # an epoch is floor(num_frames / batch_size) steps: the batch
+        # loop drops the tail
+        steps_per_epoch = self.num_frames // self.batch_size
+        if steps_per_epoch == 0:
+            raise ValueError(
+                "num_frames=%d < batch_size=%d: an epoch would contain "
+                "no batches (shrink batch_size or add frames)"
+                % (self.num_frames, self.batch_size)
+            )
+        start_epoch = step_no // steps_per_epoch
+        pending = collections.deque()  # (step_no, device aux)
+
+        def _consume(entry):
+            done_step, aux = entry
+            total = float(aux["total_loss"])
+            if not np.isfinite(total):
+                raise FloatingPointError(
+                    "non-finite total loss %r at step %d"
+                    % (total, done_step)
+                )
+            self.metrics.update(aux)
+            self.step_log["total_loss"].append(total)
+
+        # fetch, stack and copy the NEXT batch on a worker thread while
+        # the current step runs; one worker keeps provider and _rng
+        # access sequential (deterministic batch contents)
+        input_executor = ThreadPoolExecutor(max_workers=1)
+        try:
+            self._train_epochs(
+                input_executor, start_epoch, max_epoch, max_steps,
+                depth, step_no, pending, _consume, log_fn,
+            )
+        finally:
+            # joining the in-flight prepare_batch keeps provider and
+            # _rng access sequential if the caller trains again
+            input_executor.shutdown(wait=True, cancel_futures=True)
+
+    def _train_epochs(
+        self, input_executor, start_epoch, max_epoch, max_steps,
+        depth, step_no, pending, _consume, log_fn,
+    ):
+        profile_dir = self.train_config.get("profile_dir")
+        profile_start = self.train_config.get("profile_start_step", 10)
+        profile_steps = self.train_config.get("profile_steps", 5)
+        profile = None
+        for epoch_idx in range(start_epoch, max_epoch):
+            self.metrics.reset()
+            epoch_start = time.time()
+            order = self._rng.permutation(self.num_frames)
+            starts = list(range(
+                0, self.num_frames - self.batch_size + 1, self.batch_size
+            ))
+            next_input = None
+            for pos, batch_idx in enumerate(starts):
+                t_step = time.perf_counter()
+                if profile_dir and profile is None and (
+                    step_no >= profile_start
+                ):
+                    profile = _Profile(profile_dir, self.device)
+                if next_input is not None:
+                    prepared, deferred_warns = next_input.result()
+                    # warnings recorded by the prefetch thread fire here,
+                    # where callers' filters behave deterministically
+                    thread_warnings.emit(deferred_warns)
+                else:
+                    prepared = self.prepare_batch(
+                        order[batch_idx:batch_idx + self.batch_size]
+                    )
+                wait_ms = (time.perf_counter() - t_step) * 1e3
+                if pos + 1 < len(starts):
+                    nxt = starts[pos + 1]
+                    next_input = input_executor.submit(
+                        self._prepare_deferred,
+                        order[nxt:nxt + self.batch_size],
+                    )
+                else:
+                    next_input = None
+                aux = self.train_batch(prepared=prepared)
+                step_no += 1
+                pending.append((step_no, aux))
+                while len(pending) > depth:
+                    _consume(pending.popleft())
+                self.step_log["wait_ms"].append(wait_ms)
+                self.step_log["step_ms"].append(
+                    (time.perf_counter() - t_step) * 1e3)
+                if profile is not None and profile_dir and step_no >= (
+                    profile_start + profile_steps
+                ):
+                    profile.stop()
+                    profile_dir = None  # one trace per run
+                if 0 < max_steps <= step_no:
+                    while pending:
+                        _consume(pending.popleft())
+                    if profile is not None and profile_dir:
+                        profile.stop()
+                    print("save checkpoint at step %d to %s"
+                          % (step_no, self.train_dir))
+                    self.save()
+                    return
+            while pending:  # epoch metrics need every step's aux
+                _consume(pending.popleft())
+            lr = float(self.lr_schedule(self.global_step))
+            results = self.metrics.print_epoch(
+                self.global_step, epoch_idx, lr, time.time() - epoch_start
+            )
+            for key, value in results.items():
+                summary.write_summary_scale(
+                    key, value, self.global_step, self.train_dir
+                )
+            summary.write_summary_scale(
+                "learning rate", lr, self.global_step, self.train_dir
+            )
+            if log_fn is not None:
+                log_fn(epoch_idx, self.global_step, results)
+            if (epoch_idx + 1) % self.train_config.get(
+                "save_every_epoch", 20
+            ) == 0:
+                print("save checkpoint at epoch %d to %s"
+                      % (epoch_idx, self.train_dir))
+                self.save()
+        if profile is not None and profile_dir:
+            profile.stop()
+        self.save()
+
+    def close(self):
+        self.provider.close()
+        summary.close(self.train_dir)

@@ -1,6 +1,6 @@
 """The port imports with JAX, orbax, OpenCV and PIL blocked and pulls in
-nothing of ``pointgnn_tpu``; ``chip_smoke.py`` and ``run_torch.py``
-import none of them."""
+nothing of ``pointgnn_tpu``; ``chip_smoke.py``, ``run_torch.py`` and
+``train_torch.py`` import none of them."""
 
 import ast
 import os
@@ -29,7 +29,9 @@ def test_port_imports_without_jax():
     assert "pointgnn_tpu_torch.infer" in mods
     for name in ("postprocess.native", "data.png", "data.kitti",
                  "graph.voxel", "utils.config_io", "train.checkpoint",
-                 "utils.synthetic_kitti"):
+                 "utils.synthetic_kitti", "data.augment", "data.crop_aug",
+                 "train.pipeline", "train.trainer", "train.summary",
+                 "utils.thread_warnings"):
         assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """
@@ -39,6 +41,7 @@ def test_port_imports_without_jax():
         for name in %r:
             importlib.import_module(name)
         importlib.import_module("run_torch")
+        importlib.import_module("train_torch")
         bad = sorted(m for m in sys.modules
                      if m == "pointgnn_tpu" or m.startswith("pointgnn_tpu."))
         assert not bad, bad
@@ -68,7 +71,7 @@ def _imported_names(path):
 
 
 def test_chip_smoke_imports_no_jax():
-    for script in ("chip_smoke.py", "run_torch.py"):
+    for script in ("chip_smoke.py", "run_torch.py", "train_torch.py"):
         names = _imported_names(os.path.join(REPO, script))
         assert any(n.startswith("pointgnn_tpu_torch") for n in names)
         for n in names:
