@@ -7,7 +7,8 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
 
 1. prints the card's name and power limit, builds the host library
    (merge-NMS and PNG row unfiltering, ``pointgnn_tpu_torch/csrc/host/``,
-   the host C++ compiler) and the CUDA kernels
+   the host C++ compiler), the KITTI AP evaluator
+   (``csrc/host/evaluate_object.cpp``) and the CUDA kernels
    (``pointgnn_tpu_torch/csrc/slab_edge_max.cu``,
    ``slab_edge_max_bwd.cu``, ``edge_tail_max.cu`` and
    ``fused_edge_max.cu``, one nvcc each, started together, sm_90a), with
@@ -98,7 +99,23 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     their bounds; prints the median step time after the first step, the
     time the loop waited for its prefetched batch, and the host fetch
     time per frame;
-13. prints one ``{"kernels": [...]}`` line and, last, the
+13. evaluates and scores: ``eval_torch.py`` in a subprocess over phase
+    12's car_auto_T3 checkpoints (steps 2, 4, 6) on its tree: exit 0, one
+    summary per checkpoint, a finite ``total_loss``, 4 K1 launches a
+    frame and no K2 (the CLI prints its counts), frames per second; in
+    this process, every K1 call of one eval step on a tree frame at the
+    training spec (32768 points, 12288 keypoints, f32) bitwise equal to
+    the plain forward (in the step and relaunched), the level-0 and
+    level-1 pair lists equal to the plain enumeration, and K1 timed
+    beside its bound; one eval step on the card against the CPU (8192
+    points, 2048 keypoints): loss terms within ``EVAL_TOL`` of the CPU's,
+    metric counts equal; then ``smoke_train_eval_torch.py`` at its
+    defaults in a subprocess (Car T=1, 14 frames, 2394 steps at batch 1,
+    then ``Evaluator``, ``run_dataset`` and the AP evaluator): exit 0 with
+    BEV moderate AP >= 85; prints every AP line, the steps per second,
+    each stage's wall time, ``run_dataset``'s buckets and the KITTI
+    conversion per frame with the trained weights;
+14. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -1603,9 +1620,10 @@ def _python_overlap(single, boxes):
     return iou.overlapped_boxes_3d(single, boxes)
 
 
-def capture_slab_inputs(pipe, packed):
-    """Run ``device_fn`` on ``packed`` and record the arguments of every
-    ``slab_edge_max`` call as the layers give them (level 0 first)."""
+def capture_k1_calls(run):
+    """Run ``run()`` and record every ``slab_edge_max`` call the layers
+    make (level 0 first): its arguments, as the layers give them, and
+    its output."""
     import torch
 
     from pointgnn_tpu_torch.nn import layers
@@ -1615,7 +1633,7 @@ def capture_slab_inputs(pipe, packed):
 
     def recording(tail, table_a, src4, table_b, ctr4, meta, compute_dtype):
         cd = layers.mlp.as_compute_dtype(compute_dtype) or torch.float32
-        calls.append(dict(
+        args = dict(
             table_a=table_a.clone(), src_xyz=src4.clone(),
             table_b=table_b.clone(), ctr_xyz=ctr4.clone(),
             offsets=meta["offsets"].clone(),
@@ -1623,15 +1641,24 @@ def capture_slab_inputs(pipe, packed):
             weights=[(layer["w"], layer["b"]) for layer in tail],
             grid_g=meta["grid_g"], radius=meta["radius"],
             halo=meta.get("halo", 1),
-            compute_dtype=str(cd).replace("torch.", "")))
-        return orig(tail, table_a, src4, table_b, ctr4, meta, compute_dtype)
+            compute_dtype=str(cd).replace("torch.", ""))
+        out = orig(tail, table_a, src4, table_b, ctr4, meta, compute_dtype)
+        calls.append((args, out.clone()))
+        return out
 
     layers._slab_agg = recording
     try:
-        pipe.device_fn(pipe.params, packed)
+        run()
     finally:
         layers._slab_agg = orig
     return calls
+
+
+def capture_slab_inputs(pipe, packed):
+    """The arguments of every ``slab_edge_max`` call of ``device_fn`` on
+    ``packed`` (level 0 first)."""
+    return [args for args, _ in capture_k1_calls(
+        lambda: pipe.device_fn(pipe.params, packed))]
 
 
 def kitti_k1_check(pipe, packed):
@@ -1901,6 +1928,8 @@ TRAIN_CLI_CLASSES = ("Car", "Pedestrian", "Cyclist")
 # of it; the shipped rate's loss per step is probed and reported.
 CAR_CLI_LR = 0.0125
 LR_PROBE_STEPS = 6
+# phase 12's tree and train_dirs, kept for phase 13's evaluation
+TRAIN_CLI_WORK = os.path.join(HERE, "build", "chip_smoke_train")
 
 
 def train_cli_configs(name):
@@ -2067,7 +2096,7 @@ def train_cli_phase(report, device):
     from pointgnn_tpu_torch.train.trainer import Trainer
     from pointgnn_tpu_torch.utils import synthetic_kitti
 
-    work = os.path.join(HERE, "build", "chip_smoke_train")
+    work = TRAIN_CLI_WORK
     shutil.rmtree(work, ignore_errors=True)
     tree = os.path.join(work, "kitti")
     synthetic_kitti.main(tree, TRAIN_CLI_FRAMES, classes=TRAIN_CLI_CLASSES,
@@ -2182,7 +2211,6 @@ def train_cli_phase(report, device):
         t0 = time.perf_counter()
         fetch(i, i)
         fetch_ms.append(1e3 * (time.perf_counter() - t0))
-    shutil.rmtree(work, ignore_errors=True)
     report["train_cli"] = dict(
         frames=TRAIN_CLI_FRAMES, n_ground=TRAIN_CLI_N_GROUND, runs=runs,
         launches=dict(K1=k1, K2=k2),
@@ -2232,6 +2260,257 @@ def train_cli_phase(report, device):
     return k1, k2, rows
 
 
+# eval step card vs CPU: every loss term within this share of its CPU
+# value (f32 through the model; the card's cuBLAS and the CPU's sums
+# round in other orders), the metric counts equal
+EVAL_TOL = 1e-5
+# the card-vs-CPU eval step's graph (a tree frame holds ~6-7K points)
+EVAL_SMALL_POINTS, EVAL_SMALL_KEYPOINTS = 8192, 2048
+SMOKE_TIMEOUT = 900
+
+
+def eval_k1_check(calls):
+    """Every K1 call of one eval step (f32, the training spec): the
+    output in the step and a fresh launch bitwise equal to the plain
+    forward, and the level-0 and level-1 pair lists equal to the plain
+    enumeration.  Returns one row per call."""
+    import torch
+
+    from pointgnn_tpu_torch.nn import slab
+
+    rows = []
+    for i, (args, out) in enumerate(calls):
+        check(args["compute_dtype"] == "float32",
+              "eval K1 call %d is %s, not f32" % (i, args["compute_dtype"]))
+        fresh = slab.slab_edge_max(**args)
+        torch.cuda.synchronize()
+        ref = slab.slab_edge_max_reference(**args)
+        check(torch.equal(out, ref), "eval K1 call %d: the output in the "
+              "step is not the plain forward (max %.3g)"
+              % (i, (out - ref).abs().max().item()))
+        check(torch.equal(fresh, ref),
+              "eval K1 call %d: K1 is not bitwise the plain forward" % i)
+        row = dict(level=min(i, 1), P=args["table_a"].shape[0],
+                   K=args["table_b"].shape[0], max_abs_err=0.0)
+        if i < 2:  # the level-1 layers share their slab metadata
+            row["pair_list"] = pair_list_check(args)
+        rows.append(row)
+    return rows
+
+
+def eval_phase(report, device):
+    """Phase 13: evaluation and the KITTI AP acceptance loop.
+    ``eval_torch.py`` evaluates phase 12's car_auto_T3 checkpoints; one
+    eval step's K1 calls are held against the plain forward at the
+    training spec; one eval step on the card against the CPU; then
+    ``smoke_train_eval_torch.py`` at its defaults trains, evaluates,
+    serves and scores a synthetic KITTI tree."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.train import device_pipeline as dpipe
+    from pointgnn_tpu_torch.train.evaluator import Evaluator
+    from pointgnn_tpu_torch.train.pipeline import DatasetSpec, FetchSpec
+    from pointgnn_tpu_torch.utils import config_io
+
+    tree = os.path.join(TRAIN_CLI_WORK, "kitti")
+    car_dir = os.path.join(TRAIN_CLI_WORK, "car_auto_T3_train")
+    split = os.path.join(tree, "3DOP_splits/val.txt")
+    work = os.path.join(HERE, "build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    steps = ckpt.list_checkpoint_steps(car_dir)
+    check(steps == [2, 4, 6], "phase 12 left checkpoints %s" % steps)
+
+    # the eval CLI over phase 12's car run, as a user runs it
+    eval_dir = os.path.join(work, "eval")
+    ec = dict(configs.eval_config("Car"), train_dir=car_dir,
+              eval_dir=eval_dir, max_step=steps[-1], eval_every_second=1)
+    ec_path = os.path.join(work, "eval_config")
+    config_io.save_train_config(ec_path, ec)
+    cmd = [sys.executable, os.path.join(HERE, "eval_torch.py"), ec_path,
+           "--dataset_root_dir", tree, "--dataset_split_file", split]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, "eval_torch.py exited %d:\n%s\n%s" % (
+        res.returncode, res.stdout[-4000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    check("Evaluating on %d frames" % TRAIN_CLI_FRAMES in lines,
+          "eval_torch.py did not evaluate %d frames" % TRAIN_CLI_FRAMES)
+    fps = [float(m.group(1)) for m in (
+        re.match(r"^eval throughput: ([0-9.]+) frames/s", ln)
+        for ln in lines) if m]
+    check(len(fps) == len(steps), "eval throughput printed %d times for %d "
+          "checkpoints" % (len(fps), len(steps)))
+    cli_launches = json.loads(lines[-1])["launches"]
+    want = {"slab_edge_max": 4 * TRAIN_CLI_FRAMES * len(steps),
+            "slab_edge_max_backward": 0}
+    check(cli_launches == want, "eval_torch.py launches %s, want %s (4 K1 a "
+          "frame, no K2)" % (cli_launches, want))
+    with open(os.path.join(eval_dir, "scalars.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    total = {r["step"]: r["value"] for r in rows if r["key"] == "total_loss"}
+    check(sorted({r["step"] for r in rows}) == steps and sorted(total)
+          == steps, "eval summaries for steps %s"
+          % sorted({r["step"] for r in rows}))
+    check(all(np.isfinite(v) for v in total.values()),
+          "non-finite eval total_loss %s" % total)
+
+    # every K1 call of one eval step at the training spec, in this process
+    cfg = config_io.load_config(os.path.join(car_dir, "config"))
+    frozen = config_io.load_train_config(os.path.join(car_dir,
+                                                      "train_config"))
+    dspec = DatasetSpec.from_kitti_root(tree, split, cfg["num_classes"])
+
+    def evaluator(on, **extra):
+        e = dict(ec, **extra)
+        return Evaluator(cfg, e, FetchSpec(dspec, cfg, e, is_eval=True),
+                         num_frames=TRAIN_CLI_FRAMES, train_config=frozen,
+                         device=on)
+
+    ev = evaluator(device)
+    try:
+        params = ckpt.restore_checkpoint(car_dir, step=steps[-1],
+                                         device=device)[0]["params"]
+        host_frame = ev.provider.provide(0)
+        frame = dpipe.frames_to_device(host_frame, device)
+        spec = ev.device_spec
+        calls = capture_k1_calls(lambda: ev._eval_step(params, frame))
+    finally:
+        ev.close()
+    check(len(calls) == 4, "an eval step made %d K1 calls, want 4"
+          % len(calls))
+    k1_rows = eval_k1_check(calls)
+    levels = {}
+    for level in (0, 1):
+        args = calls[level][0]
+        pairs = slab.inradius_pair_count(
+            args["src_xyz"], args["ctr_xyz"], args["offsets"],
+            args["center_cell"], args["grid_g"], args["radius"],
+            args["halo"])
+        b = bound(args, pairs, PEAK_F32_FLOPS)
+        levels["L%d" % level] = dict(
+            P=args["table_a"].shape[0], K=args["table_b"].shape[0],
+            inradius_pairs=pairs, max_abs_err=0.0,
+            ms=time_ms(lambda: slab.slab_edge_max(**args), runs=5, warmup=1),
+            plain_ms=time_ms(lambda: slab.slab_edge_max_reference(**args),
+                             runs=3, warmup=1),
+            bound_ms=b[0], bound_by=b[1])
+
+    # one eval step on the card against the CPU, at a small spec
+    small = json.loads(json.dumps(spec._replace(
+        num_points=EVAL_SMALL_POINTS, num_keypoints=EVAL_SMALL_KEYPOINTS)))
+    outs = []
+    for on in (device, torch.device("cpu")):
+        ev = evaluator(on, device_graph_spec=small)
+        try:
+            p = ckpt.restore_checkpoint(car_dir, step=steps[-1],
+                                        device=on)[0]["params"]
+            aux = ev._eval_step(p, dpipe.frames_to_device(
+                ev.provider.provide(0), on))
+            outs.append({k: v.cpu().numpy() for k, v in aux.items()})
+        finally:
+            ev.close()
+    gpu, cpu = outs
+    loss_err = {}
+    for key in ("cls_loss", "loc_loss", "reg_loss", "total_loss",
+                "classwise_loc_loss"):
+        err = float(np.abs(gpu[key] - cpu[key]).max())
+        scale = float(np.abs(cpu[key]).max())
+        check(err <= EVAL_TOL * scale, "eval step %s: card vs CPU %.3g > "
+              "%g * %.3g" % (key, err, EVAL_TOL, scale))
+        loss_err[key] = dict(max_abs_err=err, scale=scale)
+    for key in ("confusion", "pr_pos_hist", "pr_neg_hist", "num_endpoint",
+                "num_valid_endpoint"):
+        check(np.array_equal(gpu[key], cpu[key]),
+              "eval step %s: card and CPU counts differ" % key)
+
+    # the acceptance loop at its defaults, as a user runs it
+    cmd = [sys.executable, os.path.join(HERE, "smoke_train_eval_torch.py"),
+           os.path.join(work, "smoke")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=SMOKE_TIMEOUT)
+    smoke_s = time.perf_counter() - t0
+    check(res.returncode == 0, "smoke_train_eval_torch.py exited %d:\n%s\n%s"
+          % (res.returncode, res.stdout[-6000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    smoke = json.loads(lines[-1])
+    check(smoke["passed"] and smoke["bev_moderate_min"] >= 85.0,
+          "smoke: BEV moderate %.2f" % smoke["bev_moderate_min"])
+    ap_lines = [ln for ln in lines if ln.startswith("[fast(on-device)]")]
+    check(len(ap_lines) == 9, "smoke printed %d AP lines" % len(ap_lines))
+    for path in ("host", "oracle"):
+        check(any(ln.startswith(path + ": skipped") for ln in lines),
+              "smoke did not report skipping %s" % path)
+    n_l1 = 1  # the smoke's Car T=1: one level-1 layer
+    per_frame = 1 + n_l1
+    smoke_k1 = sum(v["slab_edge_max"] for v in smoke["launches"].values())
+    smoke_k2 = sum(v["slab_edge_max_backward"]
+                   for v in smoke["launches"].values())
+    check(smoke["launches"]["train"] == {
+        "slab_edge_max": per_frame * smoke["steps"],
+        "slab_edge_max_backward": per_frame * smoke["steps"]},
+        "smoke training launches %s over %d steps"
+        % (smoke["launches"]["train"], smoke["steps"]))
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(TRAIN_CLI_WORK, ignore_errors=True)
+    report["eval"] = dict(
+        cli=dict(seconds=cli_s, checkpoints=steps, frames=TRAIN_CLI_FRAMES,
+                 frames_per_s=fps, total_loss=total,
+                 launches=cli_launches),
+        k1_calls=k1_rows, k1_levels=levels,
+        card_vs_cpu=dict(points=EVAL_SMALL_POINTS,
+                         keypoints=EVAL_SMALL_KEYPOINTS, tol=EVAL_TOL,
+                         losses=loss_err),
+        smoke=dict(smoke, seconds=smoke_s, ap_lines=ap_lines),
+        launches=dict(eval_cli_K1=cli_launches["slab_edge_max"],
+                      eval_cli_K2=cli_launches["slab_edge_max_backward"],
+                      smoke_K1=smoke_k1, smoke_K2=smoke_k2),
+    )
+    print("phase 13: eval_torch.py evaluated car_auto_T3 checkpoints %s on "
+          "%d frames in %.1f s: frames/s %s, total_loss %s, launches %s"
+          % (steps, TRAIN_CLI_FRAMES, cli_s, fps,
+             {k: round(v, 5) for k, v in total.items()}, cli_launches),
+          flush=True)
+    print("phase 13: one eval step on a tree frame: %d K1 calls bitwise "
+          "equal to the plain forward (in the step and relaunched); %d pair "
+          "lists equal the plain enumeration" % (
+              len(k1_rows), sum("pair_list" in r for r in k1_rows)),
+          flush=True)
+    for key, lv in levels.items():
+        print("phase 13: eval step %s P=%d K=%d f32 pairs=%d: K1 %.3f ms "
+              "plain %.3f bound %.4f (%s)"
+              % (key, lv["P"], lv["K"], lv["inradius_pairs"], lv["ms"],
+                 lv["plain_ms"], lv["bound_ms"], lv["bound_by"]), flush=True)
+    print("phase 13: eval step card vs CPU (%d points, %d keypoints, f32): "
+          "%s; metric counts equal" % (
+              EVAL_SMALL_POINTS, EVAL_SMALL_KEYPOINTS,
+              {k: "%.3g of %.3g" % (v["max_abs_err"], v["scale"])
+               for k, v in loss_err.items()}), flush=True)
+    for ln in ap_lines:
+        print("phase 13: smoke %s" % ln, flush=True)
+    print("phase 13: smoke_train_eval_torch.py in %.1f s: BEV moderate (min "
+          "over classes) %.2f, 3D moderate (mean) %.2f; %d steps in %.1f s "
+          "(%.2f steps/s, median %.2f ms after the first); eval %.2f s "
+          "(%.1f frames/s); serving %.2f s, ms per frame %s; KITTI "
+          "conversion ms per frame (median) %.3f; detections per frame %s; "
+          "launches %s"
+          % (smoke_s, smoke["bev_moderate_min"], smoke["3d_moderate_mean"],
+             smoke["steps"], smoke["train_s"], smoke["steps_per_s"],
+             smoke["median_step_ms_after_first"], smoke["eval_s"],
+             smoke["eval_frames_per_s"], smoke["serve_s"],
+             {k: round(v, 3) for k, v in smoke["serve_ms_per_frame"].items()},
+             statistics.median(smoke["kitti_conversion_ms_per_frame"]),
+             smoke["detections_per_frame"], smoke["launches"]), flush=True)
+    return cli_launches["slab_edge_max"], smoke_k1, smoke_k2, k1_rows
+
+
 def main():
     import torch
 
@@ -2253,12 +2532,17 @@ def main():
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    from pointgnn_tpu_torch.postprocess import native
+    from pointgnn_tpu_torch.postprocess import kitti_eval, native
 
     t0 = time.perf_counter()
     host_lib = native.build_library()
     print("phase 1: host library (NMS, PNG) %s in %.1f s"
           % (os.path.basename(host_lib), time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    ap_eval = kitti_eval.binary_path()
+    report["ap_evaluator_build_s"] = time.perf_counter() - t0
+    print("phase 1: KITTI AP evaluator %s in %.1f s"
+          % (os.path.basename(ap_eval), report["ap_evaluator_build_s"]))
     built = cuda_build.build_kernels()
     report["build"] = {}
     for name, (path, build_s, log) in built.items():
@@ -2282,6 +2566,7 @@ def main():
     edge_cpu_parity_phase(report, device)
     kitti, kitti_k1 = kitti_cli_phase(report, device)
     cli_k1, cli_k2, ped_rows = train_cli_phase(report, device)
+    eval_k1, smoke_k1, smoke_k2, eval_rows = eval_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -2305,18 +2590,24 @@ def main():
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:573",
         # slab serving (8 frames), training (3 steps), "l1" serving
-        # (2 frames), run_torch.py (8 KITTI frames) and train_torch.py
-        # (4 + 2 car steps, 2 ped_cyl steps), each counted from 0
+        # (2 frames), run_torch.py (8 KITTI frames), train_torch.py
+        # (4 + 2 car steps, 2 ped_cyl steps), eval_torch.py (3
+        # checkpoints x 8 frames) and smoke_train_eval_torch.py
+        # (training, evaluation, serving), each counted from 0
         "launches": (serving_launches + train_k1
                      + edge["l1"]["launches"]["slab_edge_max"]
-                     + kitti["slab_edge_max"] + cli_k1),
+                     + kitti["slab_edge_max"] + cli_k1 + eval_k1
+                     + smoke_k1),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
-            "kitti_cli": kitti["slab_edge_max"], "train_cli": cli_k1},
-        # phase 2 (car_T3 serving shapes) and phase 11 (the CLI's spec)
+            "kitti_cli": kitti["slab_edge_max"], "train_cli": cli_k1,
+            "eval_cli": eval_k1, "smoke_train_eval": smoke_k1},
+        # phase 2 (car_T3 serving shapes), phase 11 (the CLI's spec) and
+        # phase 13 (an eval step, f32, bitwise)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
-                           + [row["max_abs_err"] for row in kitti_k1]),
+                           + [row["max_abs_err"] for row in kitti_k1]
+                           + [row["max_abs_err"] for row in eval_rows]),
         # per serving frame (bf16): 1 level-0 + 3 level-1 launches
         "ms": per_frame(lv, "ms"),
         "plain_ms": per_frame(lv, "plain_ms"),
@@ -2332,14 +2623,20 @@ def main():
         "per_launch_train_ped_cyl_f32": {
             key: dict(lv_ped[key]["K1"], inradius_pairs=lv_ped[key][
                 "inradius_pairs"]) for key in lv_ped},
+        # phase 13: one eval step on a tree frame at the training spec
+        "per_launch_eval_f32": report["eval"]["k1_levels"],
     }, {
         "name": "slab_edge_max_backward",
         "route": "cuda",
         "source": "pointgnn_tpu_torch/csrc/slab_edge_max_bwd.cu",
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:1230",
-        # training (3 steps) and train_torch.py, each counted from 0
-        "launches": train_k2 + cli_k2,
-        "launches_by_path": {"training": train_k2, "train_cli": cli_k2},
+        # training (3 steps), train_torch.py and the smoke's training,
+        # each counted from 0; eval_torch.py launches none
+        "launches": train_k2 + cli_k2 + smoke_k2,
+        "launches_by_path": {"training": train_k2, "train_cli": cli_k2,
+                             "eval_cli": report["eval"]["launches"][
+                                 "eval_cli_K2"],
+                             "smoke_train_eval": smoke_k2},
         # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
         "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
                            + [r["k2_max_abs_err"] for r in ped_rows]),

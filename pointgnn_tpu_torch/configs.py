@@ -1,7 +1,7 @@
 """Built-in model and training configurations (the port's own copy).
 
 Counterpart of :mod:`pointgnn_tpu.configs` (``model_config``,
-``layer_configs``, ``get_config``, ``train_config``,
+``layer_configs``, ``get_config``, ``train_config``, ``eval_config``,
 ``get_train_config``, ``tpu_settings``, ``list_configs``): the same
 reference-schema dicts, so a config is interchangeable between the two
 packages.  ``tpu_settings`` keeps its name: it holds the family's static
@@ -205,6 +205,21 @@ def train_config(
                 },
             },
         ],
+    }
+
+
+def eval_config(label_method: str = "Car") -> Dict:
+    """Evaluation settings ("eval_config" schema): the split to score,
+    where to write the scalars, how often to poll the train_dir and the
+    step at which to stop."""
+    return {
+        "eval_dataset": (
+            "val_car.txt" if label_method == "Car" else "val_ped_cyl.txt"
+        ),
+        "eval_dir": "./checkpoints/eval",
+        "NUM_TEST_SAMPLE": -1,
+        "eval_every_second": 60,
+        "max_step": 1400000 if label_method == "Car" else 1000000,
     }
 
 

@@ -1,9 +1,14 @@
 """Config-driven Point-GNN model (counterpart of
 :class:`pointgnn_tpu.model.pointgnn.PointGNN`): serving (``mode="test"``)
-on slab graphs or on device-built edge lists (``pallas_tail``), and
-training (``mode="train"``: the slab layers become differentiable
-through ``slab_edge_max_train``, and :meth:`PointGNN.loss` gives the
-loss dict).
+on slab graphs or on device-built edge lists (``pallas_tail``), training
+(``mode="train"``: the slab layers become differentiable through
+``slab_edge_max_train``, and :meth:`PointGNN.loss` gives the loss dict)
+and evaluation (``mode="eval"``: the serving forward, with the loss
+settings of the eval mode and no class-wise localization weights).
+
+The JAX model's eval mode also switches batch normalization to its
+stored averages; the port has no normalized MLPs yet (``nn/mlp.py``
+accepts ``NONE`` only), so in the port the mode changes only the loss.
 
 The parameter tree has the JAX package's keys
 (``params[scope]["edge_mlp"][i]["w"]`` ...), so :func:`~pointgnn_tpu_torch.
@@ -67,8 +72,8 @@ class PointGNN:
         edge_sentinel: str = "dst",
         pallas_tail: bool = False,
     ):
-        if mode not in ("train", "test"):
-            raise NotImplementedError("mode %r is not ported" % mode)
+        if mode not in ("train", "eval", "test"):
+            raise ValueError("unknown mode %r" % (mode,))
         if regularizer_type is None:
             if regularizer_kwargs:
                 raise ValueError("regularizer kwargs without a regularizer")

@@ -1,5 +1,5 @@
-"""The single-device training step (counterpart of the single-device
-branches of :mod:`pointgnn_tpu.parallel.step`).
+"""The single-device training step and the one-frame loss (counterpart
+of the single-device branches of :mod:`pointgnn_tpu.parallel.step`).
 
 The step takes a stack of ``frames_per_device`` DeviceFrames (the
 on-device pipeline), builds each frame's graph on its own
@@ -32,6 +32,42 @@ class TrainState(NamedTuple):
 def init_train_state(params, optimizer) -> TrainState:
     return TrainState(step=0, params=params,
                       opt_state=optimizer.init(params))
+
+
+UNIFY_WEIGHTS = (
+    "the data-parallel endpoint reweighting (unify_weights) is not ported "
+    "to the PyTorch port (ROADMAP.md Queue 1 item 7)"
+)
+
+
+def make_loss_fn(model, loss_cfg, with_logits: bool = False):
+    """The total loss over one labeled graph.
+
+    Returns ``loss_fn(params, graph) -> (total, d)``: ``d`` holds the
+    model's loss terms (``cls_loss``, ``loc_loss``, ``reg_loss``,
+    ``classwise_loc_loss``, ``num_endpoint``, ``num_valid_endpoint``),
+    ``total_loss`` and, ``with_logits``, the detached ``logits``.  The
+    JAX function's ``unify_weights`` (data parallelism) raises; its
+    ``bn_stats`` has no counterpart, since the port's MLPs carry no batch
+    normalization."""
+
+    def loss_fn(params, graph, unify_weights=None):
+        if unify_weights is not None:
+            raise NotImplementedError(UNIFY_WEIGHTS)
+        logits, boxes = model.apply(params, graph)
+        d = model.loss(
+            logits, graph.cls_labels, boxes, graph.encoded_boxes,
+            graph.valid_boxes, graph.vertex_mask[model.output_graph_level],
+            **loss_cfg,
+        )
+        d["reg_loss"] = model.reg_loss(params)
+        total = d["cls_loss"] + d["loc_loss"] + d["reg_loss"]
+        d["total_loss"] = total
+        if with_logits:
+            d["logits"] = logits.detach()
+        return total, d
+
+    return loss_fn
 
 
 def _frame(batch, f):

@@ -1,5 +1,7 @@
 """Build and load the port's native host library: merge-NMS
-(``csrc/host/nms.cpp``) and PNG row unfiltering (``csrc/host/png.cpp``).
+(``csrc/host/nms.cpp``) and PNG row unfiltering (``csrc/host/png.cpp``);
+:func:`build_target` also builds the KITTI AP evaluator
+(``postprocess/kitti_eval.py``).
 
 At first use the host C++ compiler (``$CXX``, else ``c++``) compiles both
 sources into one shared library under ``build/torch_kernels/``, named by
@@ -28,8 +30,8 @@ from pathlib import Path
 
 import numpy as np
 
-_HOST = Path(__file__).resolve().parent.parent / "csrc" / "host"
-SOURCES = (_HOST / "nms.cpp", _HOST / "png.cpp")
+HOST_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
+SOURCES = (HOST_DIR / "nms.cpp", HOST_DIR / "png.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
 
@@ -42,42 +44,54 @@ def _run(cmd):
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
     except OSError as exc:
-        raise RuntimeError("host library build: cannot run %r: %s"
+        raise RuntimeError("native build: cannot run %r: %s"
                            % (cmd[0], exc)) from exc
     if res.returncode != 0:
-        raise RuntimeError("host library build failed (%s):\n%s%s"
+        raise RuntimeError("native build failed (%s):\n%s%s"
                            % (" ".join(cmd), res.stdout, res.stderr))
     return res.stdout
 
 
-def lib_path(cxx, build_dir=BUILD_DIR):
-    """The library's path: a hash of the sources, the flags and the
-    target that ``-march=native`` means to ``cxx`` here."""
+def target_path(cxx, sources, flags, stem, suffix, build_dir=BUILD_DIR):
+    """Where ``cxx`` builds ``sources`` with ``flags``: ``<stem>_<hash>
+    <suffix>`` under ``build_dir``, the hash over the sources, the flags
+    and the target that ``-march=native`` means to ``cxx`` here."""
     target = _run([cxx, "-march=native", "-E", "-dM", "-x", "c++",
                    os.devnull])
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(flags).encode())
     h.update("".join(sorted(target.splitlines())).encode())
-    return Path(build_dir) / ("host_%s.so" % h.hexdigest()[:16])
+    return Path(build_dir) / ("%s_%s%s" % (stem, h.hexdigest()[:16], suffix))
 
 
-def build_library(cxx=None, build_dir=BUILD_DIR):
-    """Compile ``csrc/host/*.cpp`` unless their library exists; returns
-    the library's path.  Raises ``RuntimeError`` with the compiler's
-    output when the build fails or the compiler cannot be run."""
+def build_target(cxx, sources, flags, stem, suffix, build_dir=BUILD_DIR):
+    """Compile ``sources`` into :func:`target_path` unless it exists;
+    returns the path.  Raises ``RuntimeError`` with the compiler's output
+    when the build fails or the compiler cannot be run."""
     cxx = cxx or os.environ.get("CXX") or "c++"
-    path = lib_path(cxx, build_dir)
+    path = target_path(cxx, sources, flags, stem, suffix, build_dir)
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     # concurrent builders (test workers) each write their own file and
     # rename it into place
-    tmp = path.with_suffix(".so.tmp%d" % os.getpid())
-    _run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)])
+    tmp = path.with_name(path.name + ".tmp%d" % os.getpid())
+    _run([cxx, *flags, "-o", str(tmp), *map(str, sources)])
     os.replace(tmp, path)
     return path
+
+
+def lib_path(cxx, build_dir=BUILD_DIR):
+    """The host library's path (:func:`target_path` of ``SOURCES``)."""
+    return target_path(cxx, SOURCES, CXX_FLAGS, "host", ".so", build_dir)
+
+
+def build_library(cxx=None, build_dir=BUILD_DIR):
+    """Compile ``csrc/host/nms.cpp`` and ``png.cpp`` into one shared
+    library unless it exists; returns its path."""
+    return build_target(cxx, SOURCES, CXX_FLAGS, "host", ".so", build_dir)
 
 
 def get_lib():

@@ -149,14 +149,23 @@ def coerce_device_spec(obj):
     """A DeviceGraphSpec from a config value: the spec itself, None, or
     its JSON round trip (nested lists: JSON has no tuples).  The Trainer
     freezes the resolved spec into the train_config saved beside every
-    checkpoint, so a resumed run reads it back in this form."""
+    checkpoint, so a resumed run or an evaluator reads it back in this
+    form.  A level frozen by the JAX package carries one more field,
+    ``approx_recall``, the recall of its approximate compaction on the
+    TPU; the port compacts exactly, so the field is dropped."""
     if obj is None or isinstance(obj, db.DeviceGraphSpec):
         return obj
     if isinstance(obj, (list, tuple)):
         p, k, voxel, l0, l1, *flags = obj
+        n = len(db.LevelSpec._fields)
+
+        def level(lv):
+            if len(lv) == n + 1:  # the JAX LevelSpec's approx_recall
+                lv = lv[:n]
+            return db.LevelSpec(*lv)
+
         return db.DeviceGraphSpec(
-            int(p), int(k), float(voxel),
-            db.LevelSpec(*l0), db.LevelSpec(*l1),
+            int(p), int(k), float(voxel), level(l0), level(l1),
             *[bool(f) for f in flags],
         )
     raise TypeError(

@@ -1,6 +1,7 @@
 """The port imports with JAX, orbax, OpenCV and PIL blocked and pulls in
-nothing of ``pointgnn_tpu``; ``chip_smoke.py``, ``run_torch.py`` and
-``train_torch.py`` import none of them."""
+nothing of ``pointgnn_tpu``; ``chip_smoke.py`` and the port's scripts
+(``run_torch.py``, ``train_torch.py``, ``eval_torch.py``,
+``smoke_train_eval_torch.py``) import none of them."""
 
 import ast
 import os
@@ -13,6 +14,7 @@ import pointgnn_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "orbax", "cv2", "PIL")
+SCRIPTS = ("run_torch", "train_torch", "eval_torch", "smoke_train_eval_torch")
 
 
 def _port_modules():
@@ -31,7 +33,8 @@ def test_port_imports_without_jax():
                  "graph.voxel", "utils.config_io", "train.checkpoint",
                  "utils.synthetic_kitti", "data.augment", "data.crop_aug",
                  "train.pipeline", "train.trainer", "train.summary",
-                 "utils.thread_warnings"):
+                 "utils.thread_warnings", "train.evaluator",
+                 "postprocess.kitti_eval"):
         assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """
@@ -40,15 +43,15 @@ def test_port_imports_without_jax():
             sys.modules[blocked] = None
         for name in %r:
             importlib.import_module(name)
-        importlib.import_module("run_torch")
-        importlib.import_module("train_torch")
+        for script in %r:
+            importlib.import_module(script)
         bad = sorted(m for m in sys.modules
                      if m == "pointgnn_tpu" or m.startswith("pointgnn_tpu."))
         assert not bad, bad
         for blocked in %r:
             assert sys.modules.get(blocked) is None, blocked
         print("ok", len(%r))
-        """ % (BLOCKED, mods, BLOCKED, mods)
+        """ % (BLOCKED, mods, SCRIPTS, BLOCKED, mods)
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
@@ -71,8 +74,8 @@ def _imported_names(path):
 
 
 def test_chip_smoke_imports_no_jax():
-    for script in ("chip_smoke.py", "run_torch.py", "train_torch.py"):
-        names = _imported_names(os.path.join(REPO, script))
+    for script in ("chip_smoke",) + SCRIPTS:
+        names = _imported_names(os.path.join(REPO, script + ".py"))
         assert any(n.startswith("pointgnn_tpu_torch") for n in names)
         for n in names:
             root = n.split(".")[0]
