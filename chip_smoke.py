@@ -109,13 +109,38 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     level-1 pair lists equal to the plain enumeration, and K1 timed
     beside its bound; one eval step on the card against the CPU (8192
     points, 2048 keypoints): loss terms within ``EVAL_TOL`` of the CPU's,
-    metric counts equal; then ``smoke_train_eval_torch.py`` at its
-    defaults in a subprocess (Car T=1, 14 frames, 2394 steps at batch 1,
-    then ``Evaluator``, ``run_dataset`` and the AP evaluator): exit 0 with
-    BEV moderate AP >= 85; prints every AP line, the steps per second,
-    each stage's wall time, ``run_dataset``'s buckets and the KITTI
-    conversion per frame with the trained weights;
-14. prints one ``{"kernels": [...]}`` line and, last, the
+    metric counts equal; then ``smoke_train_eval_torch.py
+    --device_graph`` in a subprocess (Car T=1, 14 frames, 2394 steps at
+    batch 1 on device-built graphs, then ``Evaluator``, ``run_dataset``
+    on host-built and on device-built graphs and the AP evaluator): exit 0
+    with BEV moderate AP >= 85 on both passes; prints every AP line, the
+    steps per second, each stage's wall time, ``run_dataset``'s buckets
+    and the KITTI conversion per frame of each pass with the trained
+    weights;
+14. host-built graphs, where no hand-written kernel runs: serves a tree
+    of phase 11's recipe from a car_auto_T3 checkpoint (random weights
+    from seed 0) with ``run_torch.py`` without ``--fast`` in a subprocess
+    (exit 0, one label file per frame, 16 fields a line, every launch
+    count 0; prints the buckets per frame); in this process, frame 0 at
+    the runtime capacity: ``gen graph`` split into voxel downsampling,
+    radius search, padding and the copy to the card, the native radius
+    search against the plain numpy one on each level (the same pairs but
+    for ones on the radius boundary, where float64 and float32 distances
+    disagree), the device program's time (CUDA events) and peak device
+    memory, and the program on the card against the CPU at 8192 points
+    (one graph fed to both, f32, ``HOST_TOL``); ``train_torch.py`` with
+    ``"device_graph": false`` on a tree of phase 12's recipe (car_auto_T3,
+    4 steps at batch 2, lr 0.0125, 2 provider workers: exit 0, a finite
+    loss every step, no K1 or K2 launch; prints the median step after the
+    first, the loop's wait and the worker's fetch per frame, timed here);
+    one such step in this process, its wall time against the card's busy
+    time by kernel (torch.profiler) and its batch's preparation;
+    ``eval_torch.py`` over that run's checkpoints (frames/s, capacity
+    growth); then ``smoke_train_eval_torch.py`` at its defaults, the host
+    recipe (Car T=1, 14 frames, 1200 steps at batch 2 on host-built
+    graphs, both serving passes): exit 0 with BEV moderate AP >= 85 on
+    both passes; prints every AP line;
+15. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -533,7 +558,8 @@ def serving_phase(report, device):
     spec = db.spec_from_config(
         cfg, num_points=NUM_POINTS, num_keypoints=NUM_KEYPOINTS
     )
-    pipe = InferencePipeline(cfg, device_spec=spec, compute_dtype="bfloat16",
+    pipe = InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             compute_dtype="bfloat16",
                              seed=0, device=device)
     frames = [synthetic_lidar_frame(seed=i, points_per_beam=380)[0]
               for i in range(FRAMES)]
@@ -597,7 +623,8 @@ def cpu_parity_phase(report, device):
     params = None
     for dev in (device, torch.device("cpu")):
         pipe = InferencePipeline(
-            cfg, params=params, device_spec=spec, compute_dtype="float32",
+            cfg, on_device_graph=True, params=params, device_spec=spec,
+            compute_dtype="float32",
             seed=1, device=dev,
         )
         if params is None:
@@ -1129,7 +1156,8 @@ def edge_pipeline(device, slab=False):
     from pointgnn_tpu_torch.infer import InferencePipeline
 
     cfg = configs.model_config("Car", T=3)
-    return InferencePipeline(cfg, device_spec=edge_spec(cfg),
+    return InferencePipeline(cfg, on_device_graph=True,
+                             device_spec=edge_spec(cfg),
                              compute_dtype="bfloat16", seed=0, device=device,
                              slab=slab)
 
@@ -1570,7 +1598,8 @@ def edge_cpu_parity_phase(report, device):
     params = None
     for dev in (device, torch.device("cpu")):
         pipe = InferencePipeline(
-            cfg, params=params, device_spec=spec, compute_dtype="float32",
+            cfg, on_device_graph=True, params=params, device_spec=spec,
+            compute_dtype="float32",
             seed=1, device=dev, slab=False,
         )
         if params is None:
@@ -1741,6 +1770,7 @@ def kitti_cli_phase(report, device):
           "run_dataset buckets %s" % sorted(buckets))
     launches = json.loads(lines[-1])["launches"]
     check(launches == {"slab_edge_max": 4 * KITTI_FRAMES,
+                       "slab_edge_max_backward": 0, "edge_tail_max": 0,
                        "fused_edge_max": 0},
           "run_torch.py launches %s over %d frames, want 4 slab_edge_max "
           "a frame" % (launches, KITTI_FRAMES))
@@ -1764,7 +1794,8 @@ def kitti_cli_phase(report, device):
     summed = sum(buckets[k] for k in KITTI_BUCKETS[:-1])
 
     # one frame's hypotheses on the card, as the CLI's pipeline makes them
-    pipe = InferencePipeline(cfg, checkpoint_dir=ck_dir, device=device)
+    pipe = InferencePipeline(cfg, checkpoint_dir=ck_dir, device=device,
+                             on_device_graph=True)
     check(pipe.restored_step == 0, "restored step %d" % pipe.restored_step)
     ds = KittiDataset(
         os.path.join(tree, "image/training/image_2"),
@@ -2430,24 +2461,9 @@ def eval_phase(report, device):
         check(np.array_equal(gpu[key], cpu[key]),
               "eval step %s: card and CPU counts differ" % key)
 
-    # the acceptance loop at its defaults, as a user runs it
-    cmd = [sys.executable, os.path.join(HERE, "smoke_train_eval_torch.py"),
-           os.path.join(work, "smoke")]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=SMOKE_TIMEOUT)
-    smoke_s = time.perf_counter() - t0
-    check(res.returncode == 0, "smoke_train_eval_torch.py exited %d:\n%s\n%s"
-          % (res.returncode, res.stdout[-6000:], res.stderr[-4000:]))
-    lines = res.stdout.strip().splitlines()
-    smoke = json.loads(lines[-1])
-    check(smoke["passed"] and smoke["bev_moderate_min"] >= 85.0,
-          "smoke: BEV moderate %.2f" % smoke["bev_moderate_min"])
-    ap_lines = [ln for ln in lines if ln.startswith("[fast(on-device)]")]
-    check(len(ap_lines) == 9, "smoke printed %d AP lines" % len(ap_lines))
-    for path in ("host", "oracle"):
-        check(any(ln.startswith(path + ": skipped") for ln in lines),
-              "smoke did not report skipping %s" % path)
+    # the acceptance loop's --device_graph recipe, as a user runs it
+    smoke, ap_lines, smoke_s = run_smoke(os.path.join(work, "smoke"),
+                                         "--device_graph")
     n_l1 = 1  # the smoke's Car T=1: one level-1 layer
     per_frame = 1 + n_l1
     smoke_k1 = sum(v["slab_edge_max"] for v in smoke["launches"].values())
@@ -2455,9 +2471,13 @@ def eval_phase(report, device):
                    for v in smoke["launches"].values())
     check(smoke["launches"]["train"] == {
         "slab_edge_max": per_frame * smoke["steps"],
-        "slab_edge_max_backward": per_frame * smoke["steps"]},
+        "slab_edge_max_backward": per_frame * smoke["steps"],
+        "edge_tail_max": 0, "fused_edge_max": 0},
         "smoke training launches %s over %d steps"
         % (smoke["launches"]["train"], smoke["steps"]))
+    check(not any(smoke["launches"]["serve_host"].values()),
+          "the smoke's host pass launched %s"
+          % smoke["launches"]["serve_host"])
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(TRAIN_CLI_WORK, ignore_errors=True)
     report["eval"] = dict(
@@ -2493,22 +2513,420 @@ def eval_phase(report, device):
               EVAL_SMALL_POINTS, EVAL_SMALL_KEYPOINTS,
               {k: "%.3g of %.3g" % (v["max_abs_err"], v["scale"])
                for k, v in loss_err.items()}), flush=True)
-    for ln in ap_lines:
-        print("phase 13: smoke %s" % ln, flush=True)
-    print("phase 13: smoke_train_eval_torch.py in %.1f s: BEV moderate (min "
-          "over classes) %.2f, 3D moderate (mean) %.2f; %d steps in %.1f s "
-          "(%.2f steps/s, median %.2f ms after the first); eval %.2f s "
-          "(%.1f frames/s); serving %.2f s, ms per frame %s; KITTI "
-          "conversion ms per frame (median) %.3f; detections per frame %s; "
-          "launches %s"
-          % (smoke_s, smoke["bev_moderate_min"], smoke["3d_moderate_mean"],
-             smoke["steps"], smoke["train_s"], smoke["steps_per_s"],
-             smoke["median_step_ms_after_first"], smoke["eval_s"],
-             smoke["eval_frames_per_s"], smoke["serve_s"],
-             {k: round(v, 3) for k, v in smoke["serve_ms_per_frame"].items()},
-             statistics.median(smoke["kitti_conversion_ms_per_frame"]),
-             smoke["detections_per_frame"], smoke["launches"]), flush=True)
+    print_smoke(13, smoke, ap_lines, smoke_s)
     return cli_launches["slab_edge_max"], smoke_k1, smoke_k2, k1_rows
+
+
+SMOKE_PASSES = ("host", "fast(on-device)")
+
+
+def run_smoke(workdir, *flags):
+    """``smoke_train_eval_torch.py`` in a subprocess, as a user runs it:
+    exit 0, BEV moderate >= 85 on both serving passes (host-built and
+    device-built graphs), 9 AP lines per pass.  Returns its JSON line, its
+    AP lines and its wall seconds."""
+    cmd = [sys.executable, os.path.join(HERE, "smoke_train_eval_torch.py"),
+           workdir, *flags]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=SMOKE_TIMEOUT)
+    smoke_s = time.perf_counter() - t0
+    check(res.returncode == 0, "smoke_train_eval_torch.py %s exited "
+          "%d:\n%s\n%s" % (" ".join(flags), res.returncode,
+                            res.stdout[-6000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    smoke = json.loads(lines[-1])
+    check(smoke["passed"] and min(smoke["bev_moderate"].values()) >= 85.0,
+          "smoke: BEV moderate %s" % smoke["bev_moderate"])
+    ap_lines = [ln for ln in lines if ln.startswith(tuple(
+        "[%s]" % p for p in SMOKE_PASSES))]
+    check(len(ap_lines) == 9 * len(SMOKE_PASSES),
+          "smoke printed %d AP lines" % len(ap_lines))
+    check(any(ln.startswith("oracle: skipped") for ln in lines),
+          "smoke did not report skipping the oracle")
+    return smoke, ap_lines, smoke_s
+
+
+def print_smoke(phase, smoke, ap_lines, smoke_s):
+    for ln in ap_lines:
+        print("phase %d: smoke %s" % (phase, ln), flush=True)
+    print("phase %d: smoke_train_eval_torch.py (%s recipe) in %.1f s: BEV "
+          "moderate (min over classes) %s, 3D moderate (mean) %s; %d steps "
+          "in %.1f s (%.2f steps/s, median %.2f ms after the first, median "
+          "wait %.2f ms); eval %.2f s (%.1f frames/s); launches %s"
+          % (phase, smoke["recipe"], smoke_s, smoke["bev_moderate"],
+             smoke["3d_moderate"], smoke["steps"], smoke["train_s"],
+             smoke["steps_per_s"], smoke["median_step_ms_after_first"],
+             smoke["median_wait_ms_after_first"], smoke["eval_s"],
+             smoke["eval_frames_per_s"], smoke["launches"]), flush=True)
+    for key, p in smoke["serve"].items():
+        print("phase %d: smoke serving %s: %.2f s, ms per frame %s; KITTI "
+              "conversion ms per frame (median) %.3f; detections per frame "
+              "%s%s" % (phase, key, p["serve_s"],
+                        {k: round(v, 3) for k, v in
+                         p["serve_ms_per_frame"].items()},
+                        statistics.median(p["kitti_conversion_ms_per_frame"]),
+                        p["detections_per_frame"],
+                        "; capacity %s" % p["capacity"] if "capacity" in p
+                        else ""), flush=True)
+
+
+HOST_SMALL_POINTS = 8192
+HOST_TOL = 1e-3  # |card - cpu| <= tol * (1 + |cpu|), f32 on both
+HOST_TRAIN_STEPS = 4
+HOST_WORK = os.path.join(HERE, "build", "chip_smoke_host")
+HOST_BUCKETS = ("fetch input", "gen graph", "gnn inference", "decode box",
+                "nms", "total")
+
+
+def _check_label_files(out_dir, names, label_map):
+    import numpy as np
+
+    classes = set(label_map) - {"Background", "DontCare"}
+    files = sorted(os.listdir(os.path.join(out_dir, "data")))
+    check(files == [n + ".txt" for n in names], "label files %s" % files)
+    lines = 0
+    for name in files:
+        with open(os.path.join(out_dir, "data", name)) as f:
+            rows = [ln.split() for ln in f.read().splitlines() if ln.strip()]
+        for row in rows:
+            check(len(row) == 16, "%s: %d fields" % (name, len(row)))
+            check(row[0] in classes, "%s: class %r" % (name, row[0]))
+            check(np.isfinite(np.float64(row[4:])).all(),
+                  "%s: non-finite field" % name)
+        lines += len(rows)
+    return lines
+
+
+def _edge_set_diff(pts, ctr, radius, native_edges, plain_edges):
+    """Pairs found by one search only; each must sit on the radius
+    boundary (the native search tests distances in float64, the numpy
+    one in float32).  Returns the count."""
+    import numpy as np
+
+    a = set(map(tuple, native_edges.tolist()))
+    b = set(map(tuple, plain_edges.tolist()))
+    diff = np.array(sorted(a ^ b), dtype=np.int64).reshape(-1, 2)
+    if len(diff):
+        d = np.linalg.norm(pts[diff[:, 0]].astype(np.float64)
+                           - ctr[diff[:, 1]].astype(np.float64), axis=1)
+        check(np.all(np.abs(d - radius) <= 1e-5 * radius),
+              "native and plain radius searches differ off the boundary: "
+              "%s" % diff[np.abs(d - radius) > 1e-5 * radius][:5])
+    return len(diff)
+
+
+def host_graph_phase(report, device):
+    """Phase 14: host-built graphs.  ``run_torch.py`` without ``--fast`` on
+    a tree of phase 11's recipe; one host frame's graph build split and
+    its device program timed, card against CPU; ``train_torch.py`` and
+    ``eval_torch.py`` with ``"device_graph": false``; then
+    ``smoke_train_eval_torch.py``'s host recipe."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.data.kitti import KittiDataset
+    from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+    from pointgnn_tpu_torch.graph import builder, pad, radius, voxel
+    from pointgnn_tpu_torch.infer import (InferencePipeline,
+                                          select_input_features)
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.train.pipeline import (DatasetSpec, FetchSpec,
+                                                   build_fetch)
+    from pointgnn_tpu_torch.utils import config_io, synthetic_kitti
+
+    work = HOST_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+
+    # 1. run_torch.py without --fast on a tree of phase 11's recipe
+    tree, ck_dir, out_dir = (os.path.join(work, d)
+                             for d in ("kitti", "ckpt", "out"))
+    names = synthetic_kitti.main(tree, KITTI_FRAMES, n_ground=12000)
+    cfg = configs.get_config("car_auto_T3_train")
+    params = InferencePipeline(cfg, seed=0, device="cpu").params
+    ckpt.save_checkpoint(ck_dir, 0, {"params": params}, config=cfg)
+    cmd = [sys.executable, os.path.join(HERE, "run_torch.py"), ck_dir,
+           "--dataset_root_dir", tree, "--output_dir", out_dir]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, "run_torch.py (host graphs) exited %d:\n%s\n"
+          "%s" % (res.returncode, res.stdout[-4000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    buckets = {}
+    for ln in lines:
+        m = re.match(r"^(.+): ([0-9.]+) ms/frame$", ln)
+        if m:
+            buckets[m.group(1)] = float(m.group(2))
+    check(set(buckets) == set(HOST_BUCKETS),
+          "run_dataset buckets %s" % sorted(buckets))
+    launches = json.loads(lines[-1])["launches"]
+    check(not any(launches.values()),
+          "run_torch.py without --fast launched %s" % launches)
+    n_lines = _check_label_files(out_dir, names,
+                                 LABEL_METHODS[cfg["label_method"]][0])
+    out["cli"] = dict(seconds=cli_s, frames=KITTI_FRAMES,
+                      ms_per_frame=buckets, launches=launches,
+                      detections=n_lines)
+    print("phase 14: run_torch.py without --fast served %d frames in %.1f s "
+          "(%d detections); ms per frame %s; launches %s"
+          % (KITTI_FRAMES, cli_s, n_lines, buckets, launches), flush=True)
+
+    # 2. one host frame in this process: the graph build split, the
+    # native radius search against the plain one, the device program
+    pipe = InferencePipeline(cfg, checkpoint_dir=ck_dir, device=device)
+    ds = KittiDataset(
+        os.path.join(tree, "image/training/image_2"),
+        os.path.join(tree, "velodyne/training/velodyne/"),
+        os.path.join(tree, "calib/training/calib/"),
+        os.path.join(tree, "labels/training/label_2"),
+        num_classes=cfg["num_classes"])
+    pts = ds.get_cam_points_in_image_with_rgb(
+        0, cfg.get("downsample_by_voxel_size"))
+    gen = cfg["runtime_graph_gen_kwargs"]
+    split, searches = {}, {}
+    for _ in range(2):  # the second, warm round is kept
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        vcl, kil = voxel.multi_level_downsample_random(
+            pts.xyz, gen["base_voxel_size"],
+            [lc["graph_scale"] for lc in gen["level_configs"]],
+            add_rnd3d=gen["add_rnd3d"], rng=rng)
+        t1 = time.perf_counter()
+        edges = []
+        for lc in gen["level_configs"]:
+            g = lc["graph_level"]
+            edges.append(builder.get_graph_generate_fn(
+                lc["graph_gen_method"])(vcl[g], vcl[g + 1], rng=rng,
+                                        **lc["graph_gen_kwargs"]))
+        t2 = time.perf_counter()
+        frame = pad.FrameData(
+            select_input_features(pts.attr, cfg["input_features"]),
+            vcl, kil, edges)
+        cap, _ = pad.grow_to_fit(pipe.capacity, [frame])
+        padded = pad.pad_frame(frame, cap)
+        t3 = time.perf_counter()
+        graph = pad.to_device(padded, device)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        split = {"voxel_ms": 1e3 * (t1 - t0), "radius_ms": 1e3 * (t2 - t1),
+                 "pad_ms": 1e3 * (t3 - t2), "copy_ms": 1e3 * (t4 - t3)}
+    for li, lc in enumerate(gen["level_configs"]):
+        g, kw = lc["graph_level"], lc["graph_gen_kwargs"]
+        t0 = time.perf_counter()
+        plain = radius.radius_neighbors(vcl[g], vcl[g + 1], kw["radius"],
+                                        kw["num_neighbors"],
+                                        use_native=False)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        nat = radius.radius_neighbors(vcl[g], vcl[g + 1], kw["radius"],
+                                      kw["num_neighbors"])
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        # uncapped: the seed draws nothing, so a rerun is bitwise equal
+        check(kw["num_neighbors"] < 0, "the runtime graph is uncapped")
+        check(np.array_equal(nat, edges[li]),
+              "the native search is not deterministic")
+        n_diff = _edge_set_diff(vcl[g], vcl[g + 1], kw["radius"], nat,
+                                plain)
+        searches["L%d" % li] = dict(
+            points=len(vcl[g]), centers=len(vcl[g + 1]), edges=len(nat),
+            native_ms=native_ms, plain_ms=plain_ms, boundary_diff=n_diff)
+
+    def program():
+        return pipe.host_graph_fn(pipe.params, graph)
+
+    program()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_ms = time_ms(program, runs=5, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out["frame"] = dict(
+        points=len(pts.xyz), vertices=[len(v) for v in vcl],
+        edges=[len(e) for e in edges], capacity=[list(cap.vertices),
+                                                 list(cap.edges)],
+        gen_graph_split=split, radius_searches=searches,
+        device_ms=device_ms, peak_device_gib=peak_gib)
+    print("phase 14: frame 0 (%d points): vertices %s, edges %s, capacity "
+          "%s; gen graph %s ms; device program %.3f ms, peak device memory "
+          "%.2f GiB" % (len(pts.xyz), out["frame"]["vertices"],
+                        out["frame"]["edges"], out["frame"]["capacity"],
+                        {k: round(v, 3) for k, v in split.items()},
+                        device_ms, peak_gib), flush=True)
+    for key, row in searches.items():
+        print("phase 14: radius search %s (%d points, %d centers, %d edges): "
+              "native %.2f ms, plain numpy %.2f ms, %d pairs differ (on the "
+              "radius boundary)" % (key, row["points"], row["centers"],
+                                    row["edges"], row["native_ms"],
+                                    row["plain_ms"], row["boundary_diff"]),
+              flush=True)
+
+    # the device program on the card against the CPU, one graph built
+    # once, at HOST_SMALL_POINTS points
+    small = pts.mask(np.arange(min(HOST_SMALL_POINTS, len(pts.xyz))))
+    cpu_pipe = InferencePipeline(
+        cfg, params=params_from_jax(params_to_numpy(pipe.params), "cpu"),
+        capacity=pad.GraphCapacity((HOST_SMALL_POINTS, 4096, 4096),
+                                   (65536, 262144)), device="cpu")
+    sgraph = cpu_pipe.host_graph(small, np.random.default_rng(1))
+    outs = [[t.cpu().numpy() for t in p.host_graph_fn(
+        p.params, pad.to_device(sgraph, p.device))]
+        for p in (pipe, cpu_pipe)]
+    errs = {}
+    for key, got, want in zip(("probs", "decoded"), *outs):
+        check(np.isfinite(got).all(), "card %s not finite" % key)
+        err = np.abs(got - want) / (1.0 + np.abs(want))
+        check(err.max() <= HOST_TOL, "host program %s card vs CPU %.3g > %g"
+              % (key, err.max(), HOST_TOL))
+        errs[key] = float(np.abs(got - want).max())
+    out["card_vs_cpu"] = dict(points=len(small.xyz), tol=HOST_TOL,
+                              max_abs_err=errs)
+    print("phase 14: host program card vs CPU (%d points, f32): max abs err "
+          "%s (tol %g relative)" % (len(small.xyz), errs, HOST_TOL),
+          flush=True)
+    del pipe, cpu_pipe, graph
+    torch.cuda.empty_cache()
+
+    # 3. train_torch.py on host-built graphs, then eval_torch.py
+    ttree = os.path.join(work, "train_kitti")
+    synthetic_kitti.main(ttree, TRAIN_CLI_FRAMES, classes=TRAIN_CLI_CLASSES,
+                         n_ground=TRAIN_CLI_N_GROUND)
+    car = "car_auto_T3_train"
+    # batch 2: the family's frame_capacity holds 2 frames (the shipped
+    # batch 4 trains over 2 devices)
+    last, stdout, secs, tc = _train_cli(
+        work, car, ttree, device, "host", max_steps=HOST_TRAIN_STEPS,
+        initial_lr=CAR_CLI_LR, device_graph=False, batch_size=2,
+        save_every_epoch=1, num_load_dataset_workers=2)
+    check(last["steps"] == HOST_TRAIN_STEPS, "host training ran %d steps"
+          % last["steps"])
+    check(not any(last["launches"].values()),
+          "host training launched %s" % last["launches"])
+    losses = last["total_loss"]
+    check(len(losses) == HOST_TRAIN_STEPS
+          and all(np.isfinite(v) for v in losses),
+          "host training losses %s" % losses)
+    steps = ckpt.list_checkpoint_steps(tc["train_dir"])
+    check(HOST_TRAIN_STEPS in steps, "host checkpoints %s" % steps)
+    # the worker's fetch (KITTI read, augmentation, host graph, labels)
+    cfg_t, _ = train_cli_configs(car)
+    fetch = build_fetch(FetchSpec(DatasetSpec.from_kitti_root(
+        ttree, os.path.join(ttree, "3DOP_splits/train.txt"),
+        cfg_t["num_classes"]), cfg_t, tc))
+    fetch_ms = []
+    for i in range(TRAIN_CLI_FRAMES):
+        t0 = time.perf_counter()
+        fetch(i, i)
+        fetch_ms.append(1e3 * (time.perf_counter() - t0))
+    # one host train step in this process: host wall time against the
+    # card's busy time (torch.profiler), and the batch's preparation
+    from pointgnn_tpu_torch.train.trainer import Trainer
+
+    tc_in = dict(tc, train_dir=os.path.join(work, "in_process"),
+                 num_load_dataset_workers=0)
+    trainer = Trainer(cfg_t, tc_in, FetchSpec(DatasetSpec.from_kitti_root(
+        ttree, os.path.join(ttree, "3DOP_splits/train.txt"),
+        cfg_t["num_classes"]), cfg_t, tc_in), num_frames=TRAIN_CLI_FRAMES,
+        device=device)
+    try:
+        prep_ms, wall_ms = [], []
+        for i in range(4):
+            t0 = time.perf_counter()
+            batch = trainer.prepare_batch([2 * i, 2 * i + 1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.train_batch(prepared=batch)
+            torch.cuda.synchronize()
+            prep_ms.append(1e3 * (t1 - t0))
+            wall_ms.append(1e3 * (time.perf_counter() - t1))
+        split = kernel_split(lambda: trainer.train_batch(prepared=batch))
+    finally:
+        trainer.close()
+    busy = sum(split.values())
+    step_wall = statistics.median(wall_ms[1:])
+    out["train_step"] = dict(
+        prepare_ms=prep_ms, wall_ms=wall_ms, device_busy_ms=busy,
+        idle_share=1.0 - busy / step_wall,
+        by_kernel=dict(list(short_split(split).items())[:8]))
+    print("phase 14: one host train step in this process (batch 2): wall "
+          "%.2f ms (median of 3 after the first), device busy %.2f ms "
+          "(idle %.0f%%), batch preparation (fetch, union, pad, copy) %.1f "
+          "ms; top kernels %s" % (step_wall, busy,
+                                  100 * out["train_step"]["idle_share"],
+                                  statistics.median(prep_ms),
+                                  out["train_step"]["by_kernel"]),
+          flush=True)
+    out["train_cli"] = dict(
+        seconds=secs, steps=last["steps"], losses=losses,
+        launches=last["launches"], checkpoints=steps,
+        median_step_ms_after_first=statistics.median(last["step_ms"][1:]),
+        median_wait_ms_after_first=statistics.median(last["wait_ms"][1:]),
+        fetch_ms_per_frame=fetch_ms)
+    print("phase 14: train_torch.py (device_graph false, batch 2) %d steps "
+          "in %.1f s: losses %s, median step %.2f ms after the first, "
+          "median wait %.2f ms, fetch per frame (median) %.1f ms, launches "
+          "%s" % (last["steps"], secs, [round(v, 4) for v in losses],
+                  out["train_cli"]["median_step_ms_after_first"],
+                  out["train_cli"]["median_wait_ms_after_first"],
+                  statistics.median(fetch_ms), last["launches"]), flush=True)
+
+    ec = dict(configs.eval_config("Car"), train_dir=tc["train_dir"],
+              eval_dir=os.path.join(work, "eval"), max_step=steps[-1],
+              eval_every_second=1)
+    ec_path = os.path.join(work, "eval_config")
+    config_io.save_train_config(ec_path, ec)
+    cmd = [sys.executable, os.path.join(HERE, "eval_torch.py"), ec_path,
+           "--dataset_root_dir", ttree, "--dataset_split_file",
+           os.path.join(ttree, "3DOP_splits/val.txt")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    eval_s = time.perf_counter() - t0
+    check(res.returncode == 0, "eval_torch.py (host graphs) exited %d:\n%s\n"
+          "%s" % (res.returncode, res.stdout[-4000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    fps = [float(m.group(1)) for m in (
+        re.match(r"^eval throughput: ([0-9.]+) frames/s", ln)
+        for ln in lines) if m]
+    check(len(fps) == len(steps), "eval throughput printed %d times for %d "
+          "checkpoints" % (len(fps), len(steps)))
+    grown = [ln for ln in lines if ln.startswith("eval capacity grown")]
+    eval_launches = json.loads(lines[-1])["launches"]
+    check(not any(eval_launches.values()),
+          "host evaluation launched %s" % eval_launches)
+    with open(os.path.join(work, "eval", "scalars.jsonl")) as f:
+        total = {r["step"]: r["value"] for r in map(json.loads, f)
+                 if r["key"] == "total_loss"}
+    check(sorted(total) == steps and all(np.isfinite(v)
+                                         for v in total.values()),
+          "host eval total_loss %s" % total)
+    out["eval_cli"] = dict(seconds=eval_s, checkpoints=steps,
+                           frames_per_s=fps, capacity_growth=grown,
+                           total_loss=total, launches=eval_launches)
+    print("phase 14: eval_torch.py (host graphs) evaluated checkpoints %s "
+          "in %.1f s: frames/s %s, total_loss %s, capacity growth %s"
+          % (steps, eval_s, fps, {k: round(v, 5) for k, v in total.items()},
+             grown or "none"), flush=True)
+
+    # 4. the acceptance loop's default (host) recipe
+    smoke, ap_lines, smoke_s = run_smoke(os.path.join(work, "smoke"))
+    check(smoke["recipe"] == "host", "smoke recipe %s" % smoke["recipe"])
+    # K1 runs only in the fast pass: 2 launches a frame (Car T=1)
+    want = {k: 0 for k in kernel_wrappers()}
+    check(all(smoke["launches"][stage] == want
+              for stage in ("train", "eval", "serve_host"))
+          and smoke["launches"]["serve_fast"] == dict(
+              want, slab_edge_max=2 * len(
+                  smoke["serve"]["fast"]["detections_per_frame"])),
+          "the host smoke launched %s" % smoke["launches"])
+    out["smoke"] = dict(smoke, seconds=smoke_s, ap_lines=ap_lines)
+    print_smoke(14, smoke, ap_lines, smoke_s)
+    shutil.rmtree(work, ignore_errors=True)
+    report["host_graph"] = out
+    return out
 
 
 def main():
@@ -2567,6 +2985,15 @@ def main():
     kitti, kitti_k1 = kitti_cli_phase(report, device)
     cli_k1, cli_k2, ped_rows = train_cli_phase(report, device)
     eval_k1, smoke_k1, smoke_k2, eval_rows = eval_phase(report, device)
+    host = host_graph_phase(report, device)
+    # every launch of phase 14's host-graph runs, by kernel (all 0); its
+    # smoke's fast pass (device graphs) is counted apart
+    sl = host["smoke"]["launches"]
+    host_runs = [host["cli"]["launches"], host["train_cli"]["launches"],
+                 host["eval_cli"]["launches"], sl["train"], sl["eval"],
+                 sl["serve_host"]]
+    host_k = {name: sum(r.get(name, 0) for r in host_runs)
+              for name in kernel_wrappers()}
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -2597,12 +3024,15 @@ def main():
         "launches": (serving_launches + train_k1
                      + edge["l1"]["launches"]["slab_edge_max"]
                      + kitti["slab_edge_max"] + cli_k1 + eval_k1
-                     + smoke_k1),
+                     + smoke_k1 + host_k["slab_edge_max"]
+                     + sl["serve_fast"]["slab_edge_max"]),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
             "kitti_cli": kitti["slab_edge_max"], "train_cli": cli_k1,
-            "eval_cli": eval_k1, "smoke_train_eval": smoke_k1},
+            "eval_cli": eval_k1, "smoke_train_eval": smoke_k1,
+            "host_graph": host_k["slab_edge_max"],
+            "host_smoke_fast_pass": sl["serve_fast"]["slab_edge_max"]},
         # phase 2 (car_T3 serving shapes), phase 11 (the CLI's spec) and
         # phase 13 (an eval step, f32, bitwise)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
@@ -2632,11 +3062,13 @@ def main():
         "replaces": "pointgnn_tpu/nn/pallas_kernels.py:1230",
         # training (3 steps), train_torch.py and the smoke's training,
         # each counted from 0; eval_torch.py launches none
-        "launches": train_k2 + cli_k2 + smoke_k2,
+        "launches": (train_k2 + cli_k2 + smoke_k2
+                     + host_k["slab_edge_max_backward"]),
         "launches_by_path": {"training": train_k2, "train_cli": cli_k2,
                              "eval_cli": report["eval"]["launches"][
                                  "eval_cli_K2"],
-                             "smoke_train_eval": smoke_k2},
+                             "smoke_train_eval": smoke_k2,
+                             "host_graph": host_k["slab_edge_max_backward"]},
         # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
         "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
                            + [r["k2_max_abs_err"] for r in ped_rows]),
@@ -2663,7 +3095,8 @@ def main():
     ):
         launches = {"edge_serving": edge["edges"]["launches"][name],
                     "l1_serving": edge["l1"]["launches"][name],
-                    "kitti_cli": kitti.get(name, 0)}
+                    "kitti_cli": kitti.get(name, 0),
+                    "host_graph": host_k[name]}
         key = "K3" if name == "edge_tail_max" else "K4"
         lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])
                 for lvl in ("L0", "L1")}

@@ -6,12 +6,15 @@ every host helper it needs is its own copy.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the CPU each
 kernel wrapper runs its plain PyTorch version.
 
-Implemented so far: serving of the two-level on-device graph
-(``infer.InferencePipeline``: slab and edge-list paths, ``stream`` and
-``run_dataset`` over a KITTI tree, driven by ``run_torch.py``) and
-single-device training on it (``parallel.step.make_train_step``),
-carried by the hand-written CUDA kernels under ``csrc/`` and the native
-host merge-NMS (``csrc/host/nms.cpp``).
+Implemented so far: serving (``infer.InferencePipeline``: the
+two-level on-device graph on the slab and edge-list paths, or the
+host-built graph on the generic segment path; ``stream`` and
+``run_dataset`` over a KITTI tree, driven by ``run_torch.py``),
+single-device training and evaluation on either graph (``Trainer``,
+``Evaluator``, ``train_torch.py``, ``eval_torch.py``), carried by the
+hand-written CUDA kernels under ``csrc/`` and the native host code under
+``csrc/host/`` (merge-NMS, PNG row filters, the radius search, the KITTI
+AP evaluator).
 """
 
 __version__ = "0.1.0"

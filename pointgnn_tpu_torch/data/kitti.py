@@ -1,5 +1,6 @@
 """KITTI 3D-object dataset reader, the serving and training subset
-(copy of :mod:`pointgnn_tpu.data.kitti`).
+(copy of :mod:`pointgnn_tpu.data.kitti`), with the class-aware label
+assigners in method form.
 
 Velodyne ``.bin`` point loading, calibration parsing and the
 velo->rect->cam->image chain (with its sanity check), label parsing with
@@ -15,6 +16,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from pointgnn_tpu_torch.core.points import Points
+from pointgnn_tpu_torch.data import labels as label_lib
 from pointgnn_tpu_torch.data.png import read_png
 from pointgnn_tpu_torch.graph import voxel
 
@@ -284,3 +286,28 @@ class KittiDataset:
         in_img, image = self._points_in_image(
             frame_idx, downsample_voxel_size, calib, xyz_range)
         return self.rgb_to_cam_points(in_img, image, calib)
+
+    # -- label assignment (the JAX dataset's method form) -------------------
+
+    def assign_classaware_label_to_points(self, labels, xyz, expend_factor):
+        if self.num_classes != 8:
+            raise ValueError("the 8-class assigner on a %d-class dataset"
+                             % self.num_classes)
+        return label_lib.assign_classaware_label_to_points(
+            labels, xyz, expend_factor)
+
+    def assign_classaware_car_label_to_points(self, labels, xyz,
+                                              expend_factor):
+        if self.num_classes != 4:
+            raise ValueError("the Car assigner on a %d-class dataset"
+                             % self.num_classes)
+        return label_lib.assign_classaware_car_label_to_points(
+            labels, xyz, expend_factor)
+
+    def assign_classaware_ped_and_cyc_label_to_points(self, labels, xyz,
+                                                      expend_factor):
+        if self.num_classes != 6:
+            raise ValueError("the Pedestrian/Cyclist assigner on a %d-class "
+                             "dataset" % self.num_classes)
+        return label_lib.assign_classaware_ped_and_cyc_label_to_points(
+            labels, xyz, expend_factor)

@@ -1,8 +1,10 @@
-"""Voxel-grid downsampling (copy of the averaging and random variants
-of :mod:`pointgnn_tpu.graph.voxel`).  ``KittiDataset.get_cam_points``
-averages when a config sets ``downsample_by_voxel_size``; the
-augmentations ``random_voxel_downsample`` and ``dilute_background``
-keep one random point per voxel.
+"""Voxel-grid downsampling (copy of :mod:`pointgnn_tpu.graph.voxel`).
+``KittiDataset.get_cam_points`` averages when a config sets
+``downsample_by_voxel_size``; the augmentations
+``random_voxel_downsample`` and ``dilute_background`` keep one random
+point per voxel; the host-built graph (``graph/builder.py``) downsamples
+its levels with :func:`multi_level_downsample_random` or
+:func:`multi_level_downsample_select`.
 
 Voxel keys come from the min-corner offset grid (floor-divide after the
 offset, optional random 3D shift of the grid); every occupied voxel
@@ -10,7 +12,7 @@ yields the mean xyz (and attr) of its points, in key order, or one of
 its original points chosen uniformly at random.
 """
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -78,3 +80,73 @@ def voxel_downsample_random(
     sel = voxel_downsample_random_indices(points.xyz, voxel_size, rng,
                                           add_rnd3d)
     return points.mask(sel)
+
+
+def multi_level_downsample_random(
+    points_xyz: np.ndarray,
+    base_voxel_size: float,
+    levels: List[float],
+    add_rnd3d: bool = False,
+    rng: Optional[np.random.Generator] = None,
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """One random point per voxel at each scale of ``levels``.
+
+    Returns ``(vertex_coord_list, keypoint_indices_list)``, ``len(levels)
+    + 1`` vertex levels; a scale equal to the one before copies the level
+    and gives identity indices.  Keypoint indices are [K, 1] int64 arrays
+    into the previous level."""
+    if rng is None:
+        rng = np.random.default_rng()
+    vertex_coord_list = [np.asarray(points_xyz)]
+    keypoint_indices_list = []
+    last_level = 0.0
+    for level in levels:
+        last_xyz = vertex_coord_list[-1]
+        if np.isclose(last_level, level):
+            vertex_coord_list.append(last_xyz.copy())
+            keypoint_indices_list.append(
+                np.arange(len(last_xyz), dtype=np.int64)[:, None])
+        else:
+            sel = voxel_downsample_random_indices(
+                last_xyz, base_voxel_size * level, rng, add_rnd3d)
+            vertex_coord_list.append(last_xyz[sel])
+            keypoint_indices_list.append(sel.astype(np.int64)[:, None])
+        last_level = level
+    return vertex_coord_list, keypoint_indices_list
+
+
+def multi_level_downsample_select(
+    points_xyz: np.ndarray,
+    base_voxel_size: float,
+    levels: List[float],
+    add_rnd3d: bool = False,
+    rng: Optional[np.random.Generator] = None,
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """The "center" method: average each voxel, then snap the average to
+    the nearest point of the level (``scipy.spatial.cKDTree``).  Same
+    return structure as :func:`multi_level_downsample_random`."""
+    from scipy.spatial import cKDTree
+
+    if rng is None:
+        rng = np.random.default_rng()
+    points_xyz = np.asarray(points_xyz)
+    vertex_coord_list = [points_xyz]
+    keypoint_indices_list = []
+    last_level = 0.0
+    for level in levels:
+        base = vertex_coord_list[-1]
+        if np.isclose(last_level, level):
+            vertex_coord_list.append(base.copy())
+            keypoint_indices_list.append(
+                np.arange(len(base), dtype=np.int64)[:, None])
+        else:
+            centers = voxel_downsample_average(
+                Points(xyz=base, attr=None), base_voxel_size * level,
+                rng if add_rnd3d else None,
+            ).xyz
+            _, idx = cKDTree(base).query(centers, k=1)
+            idx = np.asarray(idx, dtype=np.int64)
+            vertex_coord_list.append(base[idx])
+            keypoint_indices_list.append(idx[:, None])
+        last_level = level
+    return vertex_coord_list, keypoint_indices_list

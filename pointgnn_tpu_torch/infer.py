@@ -1,18 +1,29 @@
-"""On-device serving pipeline: points -> detections -> KITTI text.
+"""Serving pipeline: points -> detections -> KITTI text.
 
-Counterpart of the on-device graph paths of
-:class:`pointgnn_tpu.infer.InferencePipeline` (``on_device_graph=True``),
-with its serving surface: ``run_frame``, the pipelined ``stream`` and
-``run_dataset`` over a KITTI tree (``run_torch.py`` drives it).  Paths:
-``slab=True`` (both levels through ``slab_edge_max``), ``slab="l1"``
-(level 0 on the capped edge list through ``fused_edge_max``, level 1
-through ``slab_edge_max``) and ``slab=False`` with ``pallas_tail`` (both
-levels on capped edge lists through ``fused_edge_max``).  Per frame the
-host packs the points into one array; the device unpacks it, builds the
-two-level graph, runs the network, softmax, the hypothesis mask, top-k
-and the box decode; the host then folds the vertical classes and runs
-merge-NMS.  Stage times go into ``time_dict`` under the JAX pipeline's
-bucket names.
+Counterpart of :class:`pointgnn_tpu.infer.InferencePipeline`, with its
+serving surface: ``run_frame``, the pipelined ``stream`` and
+``run_dataset`` over a KITTI tree (``run_torch.py`` drives it).
+
+Host-built graphs (``on_device_graph=False``, ``run.py``'s default):
+per frame the host builds the runtime graph (voxel downsampling and the
+native radius search, ``graph/builder.py``), grows the capacity to fit
+it, pads it (``graph/pad.py``) and copies it to the card; the card runs
+the network on the generic segment path in f32, the softmax and the box
+decode of every (vertex, class) pair; the host masks the hypotheses,
+folds the vertical classes and runs merge-NMS.  No hand-written kernel
+runs on this path.
+
+Device-built graphs (``on_device_graph=True``): ``slab=True`` (both
+levels through ``slab_edge_max``), ``slab="l1"`` (level 0 on the capped
+edge list through ``fused_edge_max``, level 1 through ``slab_edge_max``),
+``slab=False`` with ``pallas_tail`` (both levels on capped edge lists
+through ``fused_edge_max``) or without it (the segment path).  Per frame
+the host packs the points into one array; the device unpacks it, builds
+the two-level graph, runs the network, softmax, the hypothesis mask,
+top-k and the box decode; the host then folds the vertical classes and
+runs merge-NMS.
+
+Stage times go into ``time_dict`` under the JAX pipeline's bucket names.
 """
 
 import collections
@@ -30,7 +41,9 @@ from pointgnn_tpu_torch.core import boxes as box_ops
 from pointgnn_tpu_torch.core.points import Points
 from pointgnn_tpu_torch.data.kitti import KittiDataset
 from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+from pointgnn_tpu_torch.graph import builder
 from pointgnn_tpu_torch.graph import device_builder as db
+from pointgnn_tpu_torch.graph import pad
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.pointgnn import get_model
 from pointgnn_tpu_torch.postprocess import iou as iou_lib
@@ -158,32 +171,42 @@ def format_kitti_lines(pred_labels: List[Tuple]) -> str:
 
 
 class InferencePipeline:
-    """Drives one config + parameter set over frames, on the on-device
-    graph path.
+    """Drives one config + parameter set over frames.
 
-    ``slab`` is ``True`` (both levels), ``"l1"`` (level 1 only),
-    ``False`` or ``"auto"``; ``pallas_tail`` is a bool or ``"auto"``.
-    They resolve as in the JAX pipeline, except that ``"auto"`` means on
-    for both, on the card and on the CPU (where the kernels' plain
-    versions run), so the default is the slab path.  The device spec's
-    slab flags are set both ways: a spec passed in with flags set has
-    them cleared where slab resolves off.  A level that is neither slab
-    nor edge-list tail would need the generic segment path, which is
-    not ported: the constructor raises.
+    ``on_device_graph`` chooses where the graph is built: on the host
+    (False, the JAX pipeline's default) or on the card.  ``device_spec``
+    and a ``slab`` other than ``"auto"`` configure the device-built
+    graph and raise without ``on_device_graph=True``.
+
+    Host-built graphs are padded to ``capacity`` (default: the config
+    family's ``runtime_capacity``, ``configs.tpu_settings``), grown to
+    fit each frame with a warning when ``auto_capacity`` (edge
+    truncation shifts the aggregated features of a model trained on
+    uncapped neighborhoods), and served in f32 (``compute_dtype="auto"``)
+    with TF32 off, on the segment path in one block.
+
+    On device-built graphs ``compute_dtype="auto"`` means bf16, a level
+    on the segment path streams its edges in 8 blocks, ``slab`` is
+    ``True`` (both levels), ``"l1"`` (level 1 only), ``False`` or
+    ``"auto"`` and ``pallas_tail`` a bool or ``"auto"``.  They resolve as
+    in the JAX pipeline, except that ``"auto"`` means on for both, on the
+    card and on the CPU (where the kernels' plain versions run), so the
+    default is the slab path.  The device spec's slab flags are set both
+    ways: a spec passed in with flags set has them cleared where slab
+    resolves off.
 
     ``params`` are restored from ``checkpoint_dir`` (the port's format,
     :mod:`train.checkpoint`) when given, else drawn from ``seed``;
-    ``restored_step`` records the checkpoint's step (0 otherwise).  The
-    graph is sized by ``device_spec``: the JAX pipeline's ``capacity``
-    sizes its host-built graph, which is not ported."""
+    ``restored_step`` records the checkpoint's step (0 otherwise)."""
 
     def __init__(
         self,
         config: Dict,
         params=None,
         checkpoint_dir: Optional[str] = None,
+        capacity: Optional[pad.GraphCapacity] = None,
         device_spec: Optional[db.DeviceGraphSpec] = None,
-        compute_dtype="bfloat16",
+        compute_dtype="auto",
         seed: int = 0,
         device=None,
         use_box_merge: bool = True,
@@ -191,6 +214,8 @@ class InferencePipeline:
         max_hypotheses: int = 4096,
         pallas_tail="auto",
         slab="auto",
+        on_device_graph: bool = False,
+        auto_capacity: bool = True,
     ):
         self.device = resolve_device(device)
         self.config = config
@@ -208,42 +233,66 @@ class InferencePipeline:
         self.enc_len = encodings.get_encoding_len(
             config["box_encoding_method"]
         )
-        fast_ok = all(
-            lc.get("kwargs", {}).get(key, "NONE") == "NONE"
-            for lc in config["model_kwargs"]["layer_configs"][:-1]
-            for key in ("point_MLP_normalization_type",
-                        "edge_MLP_normalization_type")
-        )
-        if pallas_tail == "auto":
-            pallas_tail = fast_ok
-        self.pallas_tail = bool(pallas_tail)
-        if slab == "auto":
-            slab = self.pallas_tail and fast_ok
-        self.slab = "l1" if slab == "l1" else bool(slab)
-        if self.slab is not True and not self.pallas_tail:
-            raise NotImplementedError(
-                "slab=%r with pallas_tail=False needs the generic segment "
-                "path (nn/segment.py, chunked_aggregate), which is not "
-                "ported" % (slab,)
+        if not on_device_graph and (device_spec is not None
+                                    or slab != "auto"):
+            raise ValueError(
+                "device_spec and slab configure device-built graphs; "
+                "on_device_graph=False builds the graph on the host"
             )
-        spec = device_spec or db.spec_from_config(config)
-        # two-way: also clear flags set on a spec passed in
-        self.device_spec = spec._replace(
-            slab_level1=bool(self.slab),
-            slab_level0=bool(self.slab) and self.slab != "l1",
-        )
+        self.on_device_graph = on_device_graph
+        if compute_dtype == "auto":
+            compute_dtype = "bfloat16" if self.on_device_graph else None
         self.compute_dtype = compute_dtype
+        self.device_spec = None
+        slab_level1 = slab_level0 = None
+        edge_chunks = None  # the model's default: one block
+        if self.on_device_graph:
+            fast_ok = all(
+                lc.get("kwargs", {}).get(key, "NONE") == "NONE"
+                for lc in config["model_kwargs"]["layer_configs"][:-1]
+                for key in ("point_MLP_normalization_type",
+                            "edge_MLP_normalization_type")
+            )
+            if pallas_tail == "auto":
+                pallas_tail = fast_ok
+            self.pallas_tail = bool(pallas_tail)
+            if slab == "auto":
+                slab = self.pallas_tail and fast_ok
+            self.slab = "l1" if slab == "l1" else bool(slab)
+            spec = device_spec or db.spec_from_config(config)
+            # two-way: also clear flags set on a spec passed in
+            self.device_spec = spec._replace(
+                slab_level1=bool(self.slab),
+                slab_level0=bool(self.slab) and self.slab != "l1",
+            )
+            if self.device_spec.slab_level1:
+                slab_level1 = db.slab_kernel_wiring(self.device_spec.level1)
+            if self.device_spec.slab_level0:
+                slab_level0 = db.slab_kernel_wiring(self.device_spec.level0)
+            edge_chunks = 8  # bound the segment path's edge rows
+        else:
+            self.pallas_tail = False
+            self.slab = False
+            # f32 serving: the dense layers must not drop to TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        if capacity is None:
+            from pointgnn_tpu_torch import configs as cfg_mod
+
+            capacity = cfg_mod.tpu_settings(self.label_method)[
+                "runtime_capacity"]
+        self.capacity = capacity
+        self.auto_capacity = auto_capacity
         self.model = get_model(config["model_name"])(
             num_classes=self.num_classes,
             box_encoding_len=self.enc_len,
             mode="test",
             compute_dtype=compute_dtype,
-            slab_level1=(db.slab_kernel_wiring(self.device_spec.level1)
-                         if self.device_spec.slab_level1 else None),
-            slab_level0=(db.slab_kernel_wiring(self.device_spec.level0)
-                         if self.device_spec.slab_level0 else None),
-            edge_sentinel="src",
+            slab_level1=slab_level1,
+            slab_level0=slab_level0,
+            edge_sentinel="src" if self.on_device_graph else "dst",
             pallas_tail=self.pallas_tail,
+            edge_chunks=edge_chunks,
             **config["model_kwargs"],
         )
         self.input_features = config["input_features"]
@@ -303,6 +352,46 @@ class InferencePipeline:
         decoded = self.decode(sel_cls, sel_xyz, sel_enc)
         return topv, sel_cls, decoded, sel_xyz
 
+    @torch.inference_mode()
+    def host_graph_fn(self, params, graph: pad.PaddedGraph):
+        """The device program of a host-built graph: forward -> softmax ->
+        box decode of every (vertex, class) pair.  Returns ``(probs [K,
+        C], decoded [K * C, 7])``."""
+        model, num_classes = self.model, self.num_classes
+        logits, box_enc = model.apply(params, graph)
+        probs = model.postprocess(logits)
+        k = probs.shape[0]
+        cls_ids = torch.arange(
+            num_classes, dtype=torch.int32, device=probs.device
+        ).repeat(k)
+        xyz = graph.vertex_xyz[model.output_graph_level].repeat_interleave(
+            num_classes, dim=0)
+        decoded = self.decode(cls_ids, xyz,
+                              box_enc.reshape(-1, model.box_encoding_len))
+        return probs, decoded
+
+    def host_graph(self, points: Points, rng: np.random.Generator):
+        """The padded runtime graph of one frame, on the host: the graph
+        build, the capacity growth (with its warning) and the padding."""
+        gen_kwargs = self.config.get(
+            "runtime_graph_gen_kwargs", self.config["graph_gen_kwargs"]
+        )
+        vcl, kil, el = builder.gen_multi_level_local_graph_v3(
+            points.xyz, **gen_kwargs, rng=rng
+        )
+        features = select_input_features(points.attr, self.input_features)
+        frame = pad.FrameData(features, vcl, kil, el)
+        if self.auto_capacity:
+            self.capacity, grew = pad.grow_to_fit(self.capacity, [frame])
+            if grew:
+                warnings.warn(
+                    "graph exceeds the padded capacity; growing to %r "
+                    "instead of truncating" % (self.capacity,),
+                    RuntimeWarning,
+                    stacklevel=4,  # run_frame's caller
+                )
+        return pad.pad_frame(frame, self.capacity)
+
     # ------------------------------------------------------------------
     def _overflow_stats(self, points: Points) -> Dict[str, int]:
         """Host-computable capacity-overflow stats for one frame.  Pure
@@ -339,10 +428,16 @@ class InferencePipeline:
             self.time_dict[bucket] = self.time_dict.get(bucket, 0) + seconds
 
     def run_frame(
-        self, points: Points
+        self, points: Points, rng: Optional[np.random.Generator] = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Dict]:
         """One frame: returns ``(class_labels, boxes_3d, scores, aux)``;
-        ``aux`` carries the masked hypothesis coordinates and scores."""
+        ``aux`` carries the masked hypothesis coordinates and scores.
+        ``rng`` draws the host-built graph's randomness (a fresh
+        ``default_rng(0)`` when None, as in JAX); the device path takes
+        none."""
+        if not self.on_device_graph:
+            return self._run_host_frame(
+                points, rng or np.random.default_rng(0))
         t0 = time.time()
         self._account_overflow(points)
         packed = db.pack_points(
@@ -361,14 +456,53 @@ class InferencePipeline:
         self._add_time("nms", time.time() - t2)
         return result
 
+    def _run_host_frame(self, points, rng):
+        t0 = time.time()
+        graph = pad.to_device(self.host_graph(points, rng), self.device)
+        t1 = time.time()
+        self._add_time("gen graph", t1 - t0)
+        probs, decoded = (t.cpu().numpy()
+                          for t in self.host_graph_fn(self.params, graph))
+        out_level = self.model.output_graph_level
+        out_xyz = graph.vertex_xyz[out_level].cpu().numpy()
+        vertex_valid = graph.vertex_mask[out_level].cpu().numpy().astype(
+            bool)
+        t2 = time.time()
+        self._add_time("gnn inference", t2 - t1)
+        # the hypothesis mask, in vertex-major order
+        k = probs.shape[0]
+        box_labels = np.tile(np.arange(self.num_classes)[None, :],
+                             (k, 1)).reshape(-1)
+        box_probs = probs.reshape(-1)
+        hyp_xyz = np.repeat(out_xyz, self.num_classes, 0)
+        hyp_valid = np.repeat(vertex_valid, self.num_classes)
+        box_mask = (
+            hyp_valid
+            & (box_labels > 0)
+            & (box_labels < self.num_classes - 1)
+            & (box_probs > 1.0 / self.num_classes)
+        )
+        box_indices = np.flatnonzero(box_mask)
+        t3 = time.time()
+        self._add_time("decode box", t3 - t2)
+        result = self._nms(box_labels[box_indices], box_probs[box_indices],
+                           decoded[box_indices], hyp_xyz[box_indices])
+        self._add_time("nms", time.time() - t3)
+        return result
+
     def _finish_frame(self, scores, sel_cls, sel_boxes, sel_xyz):
-        """Host tail: threshold, class fold, merge-NMS."""
-        self.frames_done += 1
+        """Host tail of the device path: threshold, class fold,
+        merge-NMS."""
         keep = scores > 0
-        sel_labels = sel_cls[keep].astype(np.int64)
-        sel_probs = scores[keep].astype(np.float64)
-        sel_boxes = sel_boxes[keep]
-        aux = {"hyp_xyz": sel_xyz[keep], "probs_ori": sel_probs}
+        return self._nms(sel_cls[keep], scores[keep], sel_boxes[keep],
+                         sel_xyz[keep])
+
+    def _nms(self, sel_cls, sel_probs, sel_boxes, sel_xyz):
+        """Class fold and merge-NMS of the kept hypotheses."""
+        self.frames_done += 1
+        sel_labels = sel_cls.astype(np.int64)
+        sel_probs = sel_probs.astype(np.float64)
+        aux = {"hyp_xyz": sel_xyz, "probs_ori": sel_probs}
         if sel_labels.size == 0:
             return np.zeros(0, np.int64), np.zeros((0, 7)), np.zeros(0), aux
         for v in range(2, self.num_classes - 1, 2):
@@ -411,7 +545,9 @@ class InferencePipeline:
         Buckets: ``gen graph`` (stats and packing on the worker, the copy
         to the device), ``gnn inference`` (``device_fn`` and the wait for
         its outputs), ``nms``.  ``mesh`` (data-parallel serving) is not
-        ported."""
+        ported.  Device-built graphs only, as in JAX."""
+        if not self.on_device_graph:
+            raise ValueError("stream() needs on_device_graph")
         if mesh is not None:
             raise NotImplementedError(
                 "stream(mesh=...): data-parallel serving is not ported"
@@ -504,13 +640,15 @@ class InferencePipeline:
         verbose: bool = True,
         visualization_level: int = 0,
     ) -> Dict[str, float]:
-        """Serve a :class:`KittiDataset` through :meth:`stream` and write
-        ``<output_dir>/data/<frame>.txt`` per frame.  Returns each
-        bucket's time per frame: ``fetch input`` (reading the frame, on
-        the stream's worker), ``gen graph``, ``gnn inference``, ``nms``
-        and ``total`` (the wall time of the loop).  ``is_test`` only
-        matters to visualization, which is not ported:
-        ``visualization_level >= 1`` raises."""
+        """Serve a :class:`KittiDataset` and write
+        ``<output_dir>/data/<frame>.txt`` per frame: through
+        :meth:`stream` on device-built graphs, else frame by frame with
+        one ``default_rng(0)`` for the whole run, as in JAX.  Returns
+        each bucket's time per frame: ``fetch input`` (reading the frame;
+        on the stream's worker), ``gen graph``, ``gnn inference``,
+        ``decode box`` (host graphs), ``nms`` and ``total`` (the wall
+        time of the loop).  ``is_test`` only matters to visualization,
+        which is not ported: ``visualization_level >= 1`` raises."""
         if visualization_level >= 1:
             raise NotImplementedError(
                 "visualization_level >= 1 needs utils/vis.py, which is "
@@ -519,20 +657,22 @@ class InferencePipeline:
         n = dataset.num_files if num_frames < 0 else num_frames
         calibs = []
 
-        def frames_iter():
-            for i in range(n):
-                start = time.time()
-                points = dataset.get_cam_points_in_image_with_rgb(
-                    i, self.config.get("downsample_by_voxel_size")
-                )
-                calibs.append(dataset.get_calib(i))
-                self._add_time("fetch input", time.time() - start)
-                yield points
+        def fetch(i):
+            start = time.time()
+            points = dataset.get_cam_points_in_image_with_rgb(
+                i, self.config.get("downsample_by_voxel_size")
+            )
+            calibs.append(dataset.get_calib(i))
+            self._add_time("fetch input", time.time() - start)
+            return points
 
         t_all = time.time()
-        for frame_idx, (cls, boxes, scores, aux) in enumerate(
-            self.stream(frames_iter())
-        ):
+        if self.on_device_graph:
+            results = self.stream(fetch(i) for i in range(n))
+        else:
+            rng = np.random.default_rng(0)
+            results = (self.run_frame(fetch(i), rng) for i in range(n))
+        for frame_idx, (cls, boxes, scores, aux) in enumerate(results):
             pred_labels = self.detections_to_kitti(
                 cls, boxes, scores, calibs[frame_idx], aux
             )

@@ -1,11 +1,13 @@
-"""Box encoding and decoding on the device (counterpart of the
-class-aware part of :mod:`pointgnn_tpu.model.encodings` and of
-``classaware_encode_jax`` in :mod:`pointgnn_tpu.graph.device_labels`).
+"""Box encoding and decoding (counterpart of the class-aware part of
+:mod:`pointgnn_tpu.model.encodings` and of ``classaware_encode_jax`` in
+:mod:`pointgnn_tpu.graph.device_labels`): on the device (torch, the
+serving decode and the device pipeline's labels) and on the host (numpy,
+float64, the host-built graph's fetch).
 
 Class-aware encodings are driven by per-class-id tables ``(sizes [C,3],
 yaw_offset [C], active [C])``, so encoding and decoding are gathers.
 Only ``classaware_all_class_box_encoding`` (every shipped config) is
-ported.
+ported; the other codecs raise (``ROADMAP.md`` Queue 1 item 6).
 """
 
 import functools
@@ -114,5 +116,90 @@ def get_decode(name, label_map):
             classaware_decode, tables=build_class_tables(label_map)
         )
     raise NotImplementedError(
-        "no ported device decoder for box encoding %r" % name
+        "no ported device decoder for box encoding %r (ROADMAP.md Queue 1 "
+        "item 6)" % name
+    )
+
+
+# --------------------------------------------------------------------------
+# host (numpy) encoding of the host-built graph's fetch
+# --------------------------------------------------------------------------
+
+def _lookup(cls_labels, sizes, yaw_offset, active):
+    raw = np.asarray(cls_labels).reshape(-1)
+    in_range = (raw >= 0) & (raw < len(active))
+    ids = np.clip(raw, 0, len(active) - 1)
+    return sizes[ids], yaw_offset[ids], active[ids] & in_range
+
+
+def _broadcast_points(points_xyz, boxes):
+    """[N, 3] vertex coordinates against [N, 7] or [N, C, 7] boxes."""
+    pts = np.asarray(points_xyz)
+    return pts[:, None, :] if boxes.ndim == 3 else pts
+
+
+def _classaware_encode_np(cls_labels, points_xyz, boxes_3d, tables):
+    sizes, yaw_offset, active = tables
+    boxes = np.asarray(boxes_3d, dtype=np.float64)
+    out = np.array(boxes, copy=True)
+    out[..., 0:3] = boxes[..., 0:3] - _broadcast_points(points_xyz, out)
+    sz, yoff, act = _lookup(cls_labels, sizes, yaw_offset, active)
+    b = boxes[:, 0, :]
+    o = out[:, 0, :]
+    enc_xyz = o[:, 0:3] / sz
+    enc_lhw = np.log(np.maximum(b[:, 3:6], 1e-12) / sz)
+    enc_yaw = (b[:, 6] - yoff) / QUARTER_PI
+    out[:, 0, 0:3] = np.where(act[:, None], enc_xyz, o[:, 0:3])
+    out[:, 0, 3:6] = np.where(act[:, None], enc_lhw, o[:, 3:6])
+    out[:, 0, 6] = np.where(act, enc_yaw, o[:, 6])
+    return out
+
+
+def _classaware_decode_np(cls_labels, points_xyz, encoded_boxes, tables):
+    sizes, yaw_offset, active = tables
+    enc = np.asarray(encoded_boxes, dtype=np.float64)
+    out = np.array(enc, copy=True)
+    sz, yoff, act = _lookup(cls_labels, sizes, yaw_offset, active)
+    e = enc[:, 0, :]
+    out[:, 0, 0:3] = np.where(act[:, None], e[:, 0:3] * sz, e[:, 0:3])
+    out[:, 0, 3:6] = np.where(act[:, None], np.exp(e[:, 3:6]) * sz,
+                              e[:, 3:6])
+    out[:, 0, 6] = np.where(act, e[:, 6] * QUARTER_PI + yoff, e[:, 6])
+    out[..., 0:3] = out[..., 0:3] + _broadcast_points(points_xyz, out)
+    return out
+
+
+def classaware_all_class_box_encoding(cls_labels, points_xyz, boxes_3d,
+                                      label_map):
+    """[N, 1, 7] target boxes -> [N, 1, 7] encodings (float64), for the
+    [N, 1] class ids of the points."""
+    return _classaware_encode_np(cls_labels, points_xyz, boxes_3d,
+                                 build_class_tables(label_map))
+
+
+def classaware_all_class_box_decoding(cls_labels, points_xyz, encoded_boxes,
+                                      label_map):
+    """The inverse of :func:`classaware_all_class_box_encoding`."""
+    return _classaware_decode_np(cls_labels, points_xyz, encoded_boxes,
+                                 build_class_tables(label_map))
+
+
+def get_box_encoding_fn(name):
+    """The host encoder ``fn(cls_labels, points_xyz, boxes_3d,
+    label_map)`` of a config's box encoding."""
+    if name == "classaware_all_class_box_encoding":
+        return classaware_all_class_box_encoding
+    raise NotImplementedError(
+        "no ported host encoder for box encoding %r (ROADMAP.md Queue 1 "
+        "item 6)" % name
+    )
+
+
+def get_box_decoding_fn(name):
+    """The host decoder of a config's box encoding."""
+    if name == "classaware_all_class_box_encoding":
+        return classaware_all_class_box_decoding
+    raise NotImplementedError(
+        "no ported host decoder for box encoding %r (ROADMAP.md Queue 1 "
+        "item 6)" % name
     )

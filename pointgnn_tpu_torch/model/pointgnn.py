@@ -1,6 +1,8 @@
 """Config-driven Point-GNN model (counterpart of
 :class:`pointgnn_tpu.model.pointgnn.PointGNN`): serving (``mode="test"``)
-on slab graphs or on device-built edge lists (``pallas_tail``), training
+on slab graphs, on device-built edge lists (``pallas_tail``) or on any
+edge list through the generic segment path (host-built graphs with
+``edge_sentinel="dst"``, streamed in ``edge_chunks`` blocks), training
 (``mode="train"``: the slab layers become differentiable through
 ``slab_edge_max_train``, and :meth:`PointGNN.loss` gives the loss dict)
 and evaluation (``mode="eval"``: the serving forward, with the loss
@@ -71,6 +73,7 @@ class PointGNN:
         regularizer_kwargs: Optional[dict] = None,
         edge_sentinel: str = "dst",
         pallas_tail: bool = False,
+        edge_chunks: Optional[int] = None,
     ):
         if mode not in ("train", "eval", "test"):
             raise ValueError("unknown mode %r" % (mode,))
@@ -97,14 +100,22 @@ class PointGNN:
         self.slab_level1 = slab_level1
         self.slab_level0 = slab_level0
         # padding convention of the edge lists: "src" for device-built
-        # graphs; the edge-list tail (inference only) needs it
+        # graphs, "dst" for host-built ones; the edge-list tail
+        # (inference only) needs "src"
         self.edge_sentinel = edge_sentinel
+        # the segment path streams the edge MLP and the reduction in
+        # this many checkpointed blocks: training holds E / edge_chunks
+        # edge rows at a time, forward and backward
+        if edge_chunks is None:
+            edge_chunks = 16 if mode == "train" else 1
+        self.edge_chunks = edge_chunks
         self.pallas_tail = pallas_tail and mode != "train"
         pred_cfg = self.layer_configs[-1]
         widths = predictor_widths(pred_cfg["type"])
         if widths is None:
             raise NotImplementedError(
-                "predictor type %r is not ported" % pred_cfg["type"]
+                "predictor type %r is not ported (ROADMAP.md Queue 1 "
+                "item 6)" % pred_cfg["type"]
             )
         self._predictor = ClassAwarePredictor(**widths)
         self._layers = []
@@ -182,10 +193,21 @@ class PointGNN:
                       edges_src=graph.edges_src[g],
                       edges_dst=graph.edges_dst[g],
                       edge_sentinel=self.edge_sentinel,
-                      pallas_tail=self.pallas_tail)
+                      pallas_tail=self.pallas_tail,
+                      edge_chunks=self.edge_chunks)
             p = params[cfg["scope"]]
             # slab kwargs only where the graph carries that level's slab
-            # metadata
+            # metadata; a slab level's edge list is a 1-element dummy,
+            # which no other path may reduce
+            slab_graph = (graph.slab0_offsets if g == 0
+                          else graph.slab_offsets) is not None
+            wiring = self.slab_level0 if g == 0 else self.slab_level1
+            if slab_graph and wiring is None:
+                raise ValueError(
+                    "level %d of the graph is a slab (its edge list is a "
+                    "dummy): the segment path cannot reduce it; build the "
+                    "model with that level's slab wiring" % g
+                )
             if isinstance(layer, PointSetPooling):
                 if (self.slab_level0 is not None and g == 0
                         and graph.slab0_offsets is not None):

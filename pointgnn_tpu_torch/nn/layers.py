@@ -23,15 +23,25 @@ training (``slab["train"]`` set) the slab layers call the differentiable
 ``slab_edge_max_train``: gradients reach the kernel's tail weights, and
 through the folded tables ``W0``, ``b0``, the features and the
 auto-offset MLP; the coordinates of the radius test get none.
-The generic segment path (``pallas_tail=False`` without slab metadata)
-is not ported: such a call raises.
+Everything else takes the generic segment path, as in the JAX layers:
+host-built graphs (``edge_sentinel="dst"``: padded edges carry the
+destination ``K``), and device-built edge lists without the tail
+(``"src"``: the sentinel slots are masked to ``-inf``).  Its edge
+function is the GNN layer's fold ``act(A[src] - B[dst])`` followed by
+the rest of the edge MLP, or the pooling layer's MLP over ``concat(
+feat[src], xyz[src] - ctr[dst])``; the per-center aggregation is
+:func:`~pointgnn_tpu_torch.nn.segment.chunked_aggregate` (``edge_chunks``
+blocks, each recomputed in the backward).  The JAX layers' other max,
+a reshape of a blocked edge list to ``[K, S]`` (``blocked_edges``), has
+no caller there and is not ported.  Normalizations other than NONE are
+not ported and raise (``nn/mlp.py``).
 """
 
 from typing import Optional
 
 import torch
 
-from pointgnn_tpu_torch.nn import edge_tail, mlp, slab as slab_ops
+from pointgnn_tpu_torch.nn import edge_tail, mlp, segment, slab as slab_ops
 
 
 def _fast_path_ok(agg, norm, act):
@@ -46,19 +56,53 @@ def _check_slab(agg, norm, act):
         )
 
 
-def _check_tail(pallas_tail, edge_sentinel, edges_src, num_centers, agg,
-                norm, act):
-    """Raises unless the edge-list tail applies (the JAX layers'
-    condition): anything else would take the generic segment path."""
-    if (pallas_tail and edge_sentinel == "src" and edges_src is not None
-            and _fast_path_ok(agg, norm, act)
-            and edges_src.shape[0] % num_centers == 0):
-        return
-    raise NotImplementedError(
-        "only the slab and the edge-list tail (pallas_tail) paths are "
-        "ported; the generic segment path (nn/segment.py, "
-        "chunked_aggregate) is not: pass slab metadata, or pallas_tail="
-        "True with a device-built (edge_sentinel='src') edge list"
+def _tail_applies(pallas_tail, edge_sentinel, edges_src, num_centers, agg,
+                  norm, act):
+    """The JAX layers' condition for the edge-list tail; anything else
+    without slab metadata takes the generic segment path."""
+    return bool(pallas_tail and edge_sentinel == "src"
+                and edges_src is not None
+                and _fast_path_ok(agg, norm, act)
+                and edges_src.shape[0] % num_centers == 0)
+
+
+def _rows(table, index):
+    """``table[index]`` as ``index_select``, whose backward is an
+    ``index_add`` (the backward of ``table[index]`` sorts the indices
+    first: most of a host-graph train step on the card)."""
+    return torch.index_select(table, 0, index)
+
+
+def _apply_sentinel(edge_fn, edge_sentinel, num_src, agg_name):
+    """Adapt an edge function to the graph's padding convention: "dst"
+    (host-padded graphs) leaves it, the segment reduction drops the
+    padded edges; "src" (device-built graphs, pad slots carry ``src ==
+    num_src`` and a valid destination) masks those slots to the
+    aggregation's identity."""
+    if edge_sentinel == "dst":
+        return edge_fn
+    if edge_sentinel != "src":
+        raise ValueError("unknown edge_sentinel %r" % (edge_sentinel,))
+    fill = float("-inf") if agg_name == "max" else 0.0
+
+    def masked_fn(src, dst):
+        h = edge_fn(torch.clamp(src, max=num_src - 1), dst)
+        return torch.where((src >= num_src)[:, None],
+                           torch.full((), fill, dtype=h.dtype,
+                                      device=h.device), h)
+
+    return masked_fn
+
+
+def _segment_agg(edge_fn, edges_src, edges_dst, num_src, num_centers,
+                 out_dim, agg_name, edge_sentinel, edge_chunks, dtype):
+    """The generic segment path: ``edge_fn`` over the edge list, then the
+    chunked per-center segment reduction."""
+    src, dst = edges_src.to(torch.int64), edges_dst.to(torch.int64)
+    edge_fn = _apply_sentinel(edge_fn, edge_sentinel, num_src, agg_name)
+    return segment.chunked_aggregate(
+        edge_fn, src, dst, num_centers, out_dim=out_dim,
+        aggregation=agg_name, num_chunks=edge_chunks, dtype=dtype,
     )
 
 
@@ -128,13 +172,14 @@ class PointSetPooling:
         center_xyz,         # [K, 3]
         center_mask=None,   # [K]
         point_mask=None,    # [P] (slab mode only)
-        edges_src=None,     # [K*S] -> points (sentinel P on pad slots)
-        edges_dst=None,     # [K*S] -> centers (unused: slot c*S+s is c's)
+        edges_src=None,     # [E] -> points
+        edges_dst=None,     # [E] -> centers
         point_MLP_normalization_type="NONE",
         point_MLP_activation_type="ReLU",
         output_MLP_normalization_type="NONE",
         output_MLP_activation_type="ReLU",
         compute_dtype=None,
+        edge_chunks=1,
         edge_sentinel="dst",
         pallas_tail=False,
         slab=None,
@@ -143,12 +188,12 @@ class PointSetPooling:
         num_src, num_centers = point_xyz.shape[0], center_xyz.shape[0]
         dev = point_xyz.device
         pp = params["point_mlp"]
-        table_a, table_b = _folded_tables(
-            pp[0], point_features, point_xyz, center_xyz, compute_dtype
-        )
         if slab is not None:
             _check_slab(self._agg_name, point_MLP_normalization_type,
                         point_MLP_activation_type)
+            table_a, table_b = _folded_tables(
+                pp[0], point_features, point_xyz, center_xyz, compute_dtype
+            )
             p_mask = (point_mask.to(torch.bool) if point_mask is not None
                       else torch.ones(num_src, dtype=torch.bool, device=dev))
             c_mask = (center_mask.to(torch.bool) if center_mask is not None
@@ -159,12 +204,37 @@ class PointSetPooling:
                 table_b, _xyz4(center_xyz, c_mask, -1e6), slab,
                 compute_dtype,
             )
-        else:
-            _check_tail(pallas_tail, edge_sentinel, edges_src, num_centers,
-                        self._agg_name, point_MLP_normalization_type,
-                        point_MLP_activation_type)
+        elif _tail_applies(pallas_tail, edge_sentinel, edges_src,
+                           num_centers, self._agg_name,
+                           point_MLP_normalization_type,
+                           point_MLP_activation_type):
+            table_a, table_b = _folded_tables(
+                pp[0], point_features, point_xyz, center_xyz, compute_dtype
+            )
             agg = _tail_agg(pp[1:], table_a, table_b, edges_src,
                             compute_dtype)
+        else:
+            mlp.check_norm(point_MLP_normalization_type)
+
+            def edge_fn(src, dst_raw):
+                # relative coordinates to the set's keypoint
+                dst = torch.clamp(dst_raw, max=num_centers - 1)
+                sf = _rows(point_features, src)
+                rel = _rows(point_xyz, src) - _rows(center_xyz, dst)
+                edge_in = torch.cat([sf, rel.to(sf.dtype)], dim=-1)
+                return mlp.apply_mlp(
+                    pp, edge_in, is_logits=False,
+                    normalization_type=point_MLP_normalization_type,
+                    activation_type=point_MLP_activation_type,
+                    compute_dtype=compute_dtype,
+                )
+
+            agg = _segment_agg(
+                edge_fn, edges_src, edges_dst, num_src, num_centers,
+                pp[-1]["w"].shape[1], self._agg_name, edge_sentinel,
+                edge_chunks,
+                mlp.as_compute_dtype(compute_dtype) or point_features.dtype,
+            )
         agg = agg.to(point_features.dtype)
         out = mlp.apply_mlp(
             params["output_mlp"], agg, is_logits=False,
@@ -189,8 +259,8 @@ class GraphNetAutoCenter:
         vertex_features,    # [N, C]
         vertex_xyz,         # [N, 3]
         vertex_mask=None,   # [N]
-        edges_src=None,     # [N*S] -> vertices (sentinel N on pad slots)
-        edges_dst=None,     # [N*S] -> vertices (unused: slot c*S+s is c's)
+        edges_src=None,     # [E] -> vertices
+        edges_dst=None,     # [E] -> vertices
         edge_MLP_normalization_type="NONE",
         edge_MLP_activation_type="ReLU",
         update_MLP_normalization_type="NONE",
@@ -199,6 +269,7 @@ class GraphNetAutoCenter:
         auto_offset_MLP_normalization_type="NONE",
         auto_offset_MLP_feature_activation_type="ReLU",
         compute_dtype=None,
+        edge_chunks=1,
         edge_sentinel="dst",
         pallas_tail=False,
         slab=None,
@@ -208,10 +279,12 @@ class GraphNetAutoCenter:
         if slab is not None:
             _check_slab(self._agg_name, edge_MLP_normalization_type,
                         edge_MLP_activation_type)
-        else:
-            _check_tail(pallas_tail, edge_sentinel, edges_src, n,
-                        self._agg_name, edge_MLP_normalization_type,
-                        edge_MLP_activation_type)
+        tail = slab is None and _tail_applies(
+            pallas_tail, edge_sentinel, edges_src, n, self._agg_name,
+            edge_MLP_normalization_type, edge_MLP_activation_type)
+        # the segment path folds the first layer for NONE normalization
+        # only; the JAX layer's concatenating edge MLP serves the others
+        mlp.check_norm(edge_MLP_normalization_type)
         # auto-registration offsets shift only the center coordinates
         if auto_offset:
             offset = mlp.apply_mlp(
@@ -238,9 +311,28 @@ class GraphNetAutoCenter:
                 table_b, _xyz4(vertex_xyz, maskb, -1e6), slab,
                 compute_dtype,
             )
-        else:
+        elif tail:
             agg = _tail_agg(ep[1:], table_a, table_b, edges_src,
                             compute_dtype)
+        else:
+            act = mlp.ACTIVATIONS[edge_MLP_activation_type]
+
+            def edge_fn(src, dst_raw):
+                dst = torch.clamp(dst_raw, max=n - 1)
+                h = _rows(table_a, src) - _rows(table_b, dst)
+                if act is not None:
+                    h = act(h)
+                for layer in ep[1:]:
+                    h = mlp.dense(layer, h, compute_dtype)
+                    if act is not None:
+                        h = act(h)
+                return h
+
+            agg = _segment_agg(
+                edge_fn, edges_src, edges_dst, n, n, ep[-1]["w"].shape[1],
+                self._agg_name, edge_sentinel, edge_chunks,
+                mlp.as_compute_dtype(compute_dtype) or vertex_features.dtype,
+            )
         agg = agg.to(vertex_features.dtype)
         update = mlp.apply_mlp(
             params["update_mlp"], agg, is_logits=True,

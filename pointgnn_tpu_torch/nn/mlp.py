@@ -46,11 +46,11 @@ def dense(params, x, compute_dtype=None):
     return y + b.to(y.dtype)
 
 
-def _check_norm(normalization_type):
+def check_norm(normalization_type):
     if normalization_type != "NONE":
         raise NotImplementedError(
-            "only NONE normalization is ported, got %r"
-            % normalization_type
+            "only NONE normalization is ported, got %r (BN and instance "
+            "norm: ROADMAP.md Queue 1 item 6)" % normalization_type
         )
 
 
@@ -64,7 +64,7 @@ def apply_mlp(
 ):
     """``multi_layer_neural_network_fn`` parity; ``is_logits=True``
     leaves the final layer linear."""
-    _check_norm(normalization_type)
+    check_norm(normalization_type)
     act = ACTIVATIONS[activation_type]
     n = len(params)
     for i, layer in enumerate(params):

@@ -1,12 +1,16 @@
 """The single-device training step and the one-frame loss (counterpart
 of the single-device branches of :mod:`pointgnn_tpu.parallel.step`).
 
-The step takes a stack of ``frames_per_device`` DeviceFrames (the
-on-device pipeline), builds each frame's graph on its own
-grid, runs the model and the loss frame by frame, and combines them
+With a ``graph_builder`` (the on-device pipeline) the step takes a stack
+of ``frames_per_device`` DeviceFrames, builds each frame's graph on its
+own grid, runs the model and the loss frame by frame, and combines them
 with the graph-union endpoint weighting of the reference's batching:
 
     cls = sum_f cls_f * n_ep_f / sum_f n_ep_f     (loc: n_val_f)
+
+Without one (host-built graphs) it takes the padded union of the step's
+frames (``graph.pad.batch_and_pad``, on the device) and runs the model
+and the loss once over it, as the JAX step does.
 
 The parameters are updated in place (one set of tensors, the leaves of
 ``state.params``); the returned state carries the next step count.  The
@@ -139,20 +143,30 @@ def make_train_step(
     model,
     optimizer,
     loss_cfg: dict,
-    graph_builder,
+    graph_builder=None,
     frames_per_device: int = 1,
     with_metrics: bool = False,
     graph_rng_seed: Optional[int] = None,
 ):
     """``step(state, batch) -> (state, aux)`` on one device.
 
-    ``batch`` is a stack of ``frames_per_device`` DeviceFrames on the
-    device; ``graph_builder`` builds each frame's graph.
-    ``graph_rng_seed`` randomizes each frame's graph per step."""
+    With ``graph_builder``, ``batch`` is a stack of ``frames_per_device``
+    DeviceFrames on the device, ``graph_builder`` builds each frame's
+    graph and ``graph_rng_seed`` randomizes each frame's graph per step.
+    Without it, ``batch`` is a padded union graph on the device
+    (``frames_per_device`` must be 1: the frames are unioned before the
+    step)."""
     # f32 training: the dense layers outside the kernels must not drop
     # to TF32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if graph_builder is None:
+        if frames_per_device != 1:
+            raise ValueError(
+                "frames_per_device > 1 needs a graph_builder (host-built "
+                "graphs union the frames in pad.batch_and_pad)"
+            )
+        return _make_graph_step(model, optimizer, loss_cfg, with_metrics)
     sums_fn = make_union_sums_fn(model, loss_cfg, graph_builder,
                                  frames_per_device, with_metrics)
 
@@ -182,6 +196,31 @@ def make_train_step(
         if with_metrics:
             for k in ("confusion", "pr_pos_hist", "pr_neg_hist"):
                 aux[k] = acc[k]
+        optimizer.apply(state.opt_state, state.params)
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in aux.items()}
+        return TrainState(state.step + 1, state.params,
+                          state.opt_state), aux
+
+    return step
+
+
+def _make_graph_step(model, optimizer, loss_cfg, with_metrics):
+    """The step over one padded graph: the loss dict of
+    :func:`make_loss_fn`, its backward and the optimizer update."""
+    loss_fn = make_loss_fn(model, loss_cfg, with_logits=with_metrics)
+
+    def step(state: TrainState, graph):
+        for t in param_leaves(state.params):
+            t.grad = None
+        total, aux = loss_fn(state.params, graph)
+        total.backward()
+        if with_metrics:
+            aux.update(metrics_lib.device_updates(
+                aux.pop("logits"), graph.cls_labels,
+                graph.vertex_mask[model.output_graph_level],
+                model.num_classes,
+            ))
         optimizer.apply(state.opt_state, state.params)
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}

@@ -1,9 +1,11 @@
 """Build and load the port's native host library: merge-NMS
-(``csrc/host/nms.cpp``) and PNG row unfiltering (``csrc/host/png.cpp``);
-:func:`build_target` also builds the KITTI AP evaluator
+(``csrc/host/nms.cpp``), PNG row unfiltering (``csrc/host/png.cpp``) and
+the radius search of the host-built graph (``csrc/host/radius_grid.cpp``,
+threaded with ``std::thread``); :func:`build_target` also builds the
+KITTI AP evaluator
 (``postprocess/kitti_eval.py``).
 
-At first use the host C++ compiler (``$CXX``, else ``c++``) compiles both
+At first use the host C++ compiler (``$CXX``, else ``c++``) compiles the
 sources into one shared library under ``build/torch_kernels/``, named by
 a hash of the sources, the flags and the instruction set that
 ``-march=native`` selects on this machine (the compiler's predefined
@@ -12,7 +14,10 @@ with ``ctypes``.  There is no fallback: a failed build or load raises
 with the compiler's output.
 
 Flags: the JAX package's (``cpp/Makefile``), ``-O3 -march=native
--std=c++17``, plus ``-fPIC -shared``, and no ``-ffast-math``.  In C++
+-std=c++17``, plus ``-fPIC -shared -pthread``, and no ``-ffast-math``.
+The Makefile builds ``radius_grid.cpp`` with ``-fopenmp``; the port's
+copy threads its center loop itself, since the GPU machine's compiler
+has no OpenMP runtime to link (``libgomp.spec`` missing).  In C++
 GCC contracts ``a * b + c`` into one FMA by default
 (``-ffp-contract=fast``; ISO mode turns that off only for C), wherever
 the target has FMA.  ``-march=native`` is kept so that the port's NMS
@@ -31,11 +36,16 @@ from pathlib import Path
 import numpy as np
 
 HOST_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
-SOURCES = (HOST_DIR / "nms.cpp", HOST_DIR / "png.cpp")
+SOURCES = (HOST_DIR / "nms.cpp", HOST_DIR / "png.cpp",
+           HOST_DIR / "radius_grid.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+             "-pthread"]
 
 _lock = threading.Lock()
+# the radius search keeps its grid between its two passes in one
+# process-wide slot: one caller at a time
+_radius_lock = threading.Lock()
 _lib = None
 
 
@@ -89,8 +99,8 @@ def lib_path(cxx, build_dir=BUILD_DIR):
 
 
 def build_library(cxx=None, build_dir=BUILD_DIR):
-    """Compile ``csrc/host/nms.cpp`` and ``png.cpp`` into one shared
-    library unless it exists; returns its path."""
+    """Compile ``csrc/host/nms.cpp``, ``png.cpp`` and ``radius_grid.cpp``
+    into one shared library unless it exists; returns its path."""
     return build_target(cxx, SOURCES, CXX_FLAGS, "host", ".so", build_dir)
 
 
@@ -111,6 +121,13 @@ def get_lib():
             lib.pgnn_png_unfilter.restype = ctypes.c_int64
             lib.pgnn_png_unfilter.argtypes = [
                 u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, u8p,
+            ]
+            i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+            f32p = ctypes.POINTER(ctypes.c_float)
+            lib.pgnn_radius_neighbors.restype = ctypes.c_int
+            lib.pgnn_radius_neighbors.argtypes = [
+                f32p, i64, f32p, i64, ctypes.c_float, ctypes.c_int32,
+                ctypes.c_uint64, i64p, i64p, i64p, i64p,
             ]
             _lib = lib
     return _lib
@@ -160,3 +177,39 @@ def png_unfilter(rows, bpp):
         raise ValueError("PNG row %d has unknown filter type %d"
                          % (bad, rows[bad, 0]))
     return out
+
+
+def radius_neighbors(points_xyz, centers_xyz, radius, num_neighbors, seed):
+    """[E, 2] int64 (point, center) pairs with ``|p - c| <= radius``,
+    grouped by center in ascending order; ``num_neighbors > 0`` keeps a
+    uniform random subset of that many per center (reservoir sampling
+    seeded by ``seed`` and the center).  Two passes: count, then fill."""
+    pts = np.ascontiguousarray(points_xyz, dtype=np.float32)
+    ctr = np.ascontiguousarray(centers_xyz, dtype=np.float32)
+    n, m = len(pts), len(ctr)
+    if n == 0 or m == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    lib = get_lib()
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+
+    def iptr(a):
+        return a.ctypes.data_as(i64p)
+
+    counts = np.zeros((m,), dtype=np.int64)
+    offsets = np.zeros((m + 1,), dtype=np.int64)
+    args = (pts.ctypes.data_as(f32p), n, ctr.ctypes.data_as(f32p), m,
+            float(radius), int(num_neighbors), int(seed))
+    with _radius_lock:
+        rc = lib.pgnn_radius_neighbors(*args, iptr(counts), i64p(), i64p(),
+                                       i64p())
+        if rc != 0:
+            raise RuntimeError("pgnn_radius_neighbors count pass: %d" % rc)
+        np.cumsum(counts, out=offsets[1:])
+        src = np.empty((int(offsets[-1]),), dtype=np.int64)
+        dst = np.empty_like(src)
+        rc = lib.pgnn_radius_neighbors(*args, iptr(counts), iptr(offsets),
+                                       iptr(src), iptr(dst))
+    if rc != 0:
+        raise RuntimeError("pgnn_radius_neighbors fill pass: %d" % rc)
+    return np.stack([src, dst], axis=1)

@@ -11,8 +11,8 @@ The host side is :func:`build_device_fetch`: KITTI read, crop-paste
 and the augmentation chain, then packing, with every random draw from
 the request's own seed.  The port trains on the two-level slab graph
 only (the exact uncapped radius graph, the serving semantics); training
-on device-built edge lists runs the generic segment path, which is not
-ported (``ROADMAP.md`` Queue 1 item 6).
+on device-built edge lists is not ported (``ROADMAP.md`` Queue 1 item
+6).
 """
 
 from typing import NamedTuple, Optional
@@ -26,9 +26,8 @@ from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import device_labels as dl
 
 EDGE_LIST_TRAINING = (
-    "training on device-built edge lists (device_graph_slab: false) runs "
-    "the generic segment path, which is not ported to the PyTorch port "
-    "(ROADMAP.md Queue 1 item 6)"
+    "training on device-built edge lists (device_graph_slab: false) is "
+    "not ported to the PyTorch port (ROADMAP.md Queue 1 item 6)"
 )
 
 

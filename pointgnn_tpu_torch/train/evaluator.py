@@ -4,15 +4,21 @@
 Polls a training directory, evaluates each new checkpoint over the eval
 split with the training loss and the streaming metric set, and writes
 the scalars to an eval directory (``eval_once`` / ``eval_repeat``: skip
-evaluated steps, stop at ``max_step``).  Each frame's graph build, label
-assignment, box encoding, forward (the slab kernel K1 at both levels),
-loss and metric counts run on the card; the graph is not randomized, as
-the reference's eval fetch is not.
+evaluated steps, stop at ``max_step``).  ``device_graph`` resolves as in
+the JAX evaluator: "auto" follows the checkpoint's frozen
+``train_config``.
 
-Device-graph evaluation only: ``device_graph`` resolves as in the JAX
-evaluator ("auto" follows the checkpoint's frozen ``train_config``), and
-a host-graph evaluation raises, since the host-built graph and its
-capacity growth are not ported (``ROADMAP.md`` Queue 1 item 6).
+On device-built graphs each frame's graph build, label assignment, box
+encoding, forward (the slab kernel K1 at both levels), loss and metric
+counts run on the card; the graph is not randomized, as the reference's
+eval fetch is not.  On host-built graphs the fetch builds the graph,
+labels and encoded boxes; the fetch thread grows ``capacity`` to fit the
+frame (never truncating; it prints each growth), pads it and copies it
+to the card, which runs the forward on the segment path, the loss and
+the metric counts.  ``capacity`` defaults to the family's
+``frame_capacity``, with 4x the edges for a checkpoint trained on
+device-built graphs (or with ``host_eval_of_device_checkpoint``): those
+trained on uncapped neighborhoods.
 """
 
 import collections
@@ -22,6 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
+from pointgnn_tpu_torch import configs as cfg_mod
+from pointgnn_tpu_torch.graph import pad
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.losses import loss_config
 from pointgnn_tpu_torch.model.pointgnn import get_model
@@ -34,11 +42,6 @@ from pointgnn_tpu_torch.train.pipeline import DataProvider, FetchSpec
 from pointgnn_tpu_torch.utils import thread_warnings
 from pointgnn_tpu_torch.utils.device import resolve_device
 
-HOST_GRAPH_EVAL = (
-    "host-graph evaluation (device_graph false, or \"auto\" over a "
-    "checkpoint not trained on device-built graphs) and its capacity "
-    "growth are not ported to the PyTorch port (ROADMAP.md Queue 1 item 6)"
-)
 # frames fetched and copied to the card ahead of the step, and steps
 # whose metric aux stays on the card before it is read back
 PUT_AHEAD = 2
@@ -52,6 +55,7 @@ class Evaluator:
         eval_config: Dict,
         fetch_spec: FetchSpec,
         num_frames: int,
+        capacity: Optional[pad.GraphCapacity] = None,
         train_config: Optional[Dict] = None,
         device=None,
     ):
@@ -64,21 +68,25 @@ class Evaluator:
         dg = eval_config.get("device_graph", "auto")
         if dg == "auto":
             dg = bool(self.train_config.get("device_graph", False))
-        if not dg:
-            raise NotImplementedError(HOST_GRAPH_EVAL)
-        # shared with Trainer (resolve_device_setup), so a checkpoint is
-        # evaluated on the graphs it trained on; a frozen train_config
-        # holds the spec as nested lists, which are coerced back
-        dspec, model_extra = dpipe.resolve_device_setup(
-            config,
-            spec=(eval_config.get("device_graph_spec")
-                  or self.train_config.get("device_graph_spec")),
-            slab=eval_config.get(
-                "device_graph_slab",
-                self.train_config.get("device_graph_slab", "auto"),
-            ),
-        )
-        self.device_spec = dspec
+        self.device_graph = bool(dg)
+        self.device_spec = None
+        graph_builder = None
+        model_extra = {}
+        if self.device_graph:
+            # shared with Trainer (resolve_device_setup), so a checkpoint
+            # is evaluated on the graphs it trained on; a frozen
+            # train_config holds the spec as nested lists, which are
+            # coerced back
+            dspec, model_extra = dpipe.resolve_device_setup(
+                config,
+                spec=(eval_config.get("device_graph_spec")
+                      or self.train_config.get("device_graph_spec")),
+                slab=eval_config.get(
+                    "device_graph_slab",
+                    self.train_config.get("device_graph_slab", "auto"),
+                ),
+            )
+            self.device_spec = dspec
         self.model = get_model(config["model_name"])(
             num_classes=config["num_classes"],
             box_encoding_len=enc_len,
@@ -86,9 +94,24 @@ class Evaluator:
             **model_extra,
             **config["model_kwargs"],
         )
-        graph_builder = dpipe.make_graph_builder(
-            dspec, self.model.output_graph_level, config
-        )
+        if self.device_graph:
+            graph_builder = dpipe.make_graph_builder(
+                self.device_spec, self.model.output_graph_level, config
+            )
+        if capacity is None:
+            capacity = cfg_mod.tpu_settings(config["label_method"])[
+                "frame_capacity"]
+            if not self.device_graph and (
+                self.train_config.get("device_graph")
+                or eval_config.get("host_eval_of_device_checkpoint")
+            ):
+                # a checkpoint trained on uncapped neighborhoods: edge
+                # truncation at the training bucket would mis-score it
+                capacity = pad.GraphCapacity(
+                    vertices=capacity.vertices,
+                    edges=tuple(4 * e for e in capacity.edges),
+                )
+        self.capacity = capacity
         loss_fn = step_lib.make_loss_fn(
             self.model, loss_config(config), with_logits=True
         )
@@ -99,7 +122,8 @@ class Evaluator:
         def eval_step(params, frame):
             # deterministic graph (no randomization): the reference's
             # eval fetch does not randomize either
-            graph = graph_builder(frame)
+            graph = (graph_builder(frame) if graph_builder is not None
+                     else frame)
             _, aux = loss_fn(params, graph)
             logits = aux.pop("logits")
             aux.update(metrics_lib.device_updates(
@@ -113,7 +137,7 @@ class Evaluator:
             config["num_classes"], enc_len
         )
         self.provider = DataProvider(
-            fetch_spec._replace(is_eval=True, device_spec=dspec),
+            fetch_spec._replace(is_eval=True, device_spec=self.device_spec),
             load_dataset_to_mem=False,
             num_workers=eval_config.get("num_load_dataset_workers", 0),
             num_frames=num_frames,
@@ -125,10 +149,18 @@ class Evaluator:
     # ------------------------------------------------------------------
     def _put_frame(self, frame_idx):
         """Fetch one frame and copy it to the card (the background
-        thread); capacity warnings are recorded for the loop to emit."""
+        thread): the packed frame, or the host graph padded to the
+        capacity, grown first to fit it.  Capacity warnings are recorded
+        for the loop to emit."""
         with thread_warnings.deferred() as entries:
             frame = self.provider.provide(frame_idx)
-            return dpipe.frames_to_device(frame, self.device), entries
+            if self.device_graph:
+                return dpipe.frames_to_device(frame, self.device), entries
+            self.capacity, grew = pad.grow_to_fit(self.capacity, [frame])
+            if grew:
+                print("eval capacity grown to %r" % (self.capacity,))
+            return pad.to_device(pad.batch_and_pad([frame], self.capacity),
+                                 self.device), entries
 
     def eval_once(self, train_dir: str, eval_dir: str, step: int) -> Dict:
         """Evaluate checkpoint ``model-<step>`` over the split; returns

@@ -2,10 +2,14 @@
 cache (counterpart of :mod:`pointgnn_tpu.train.pipeline`).
 
 ``build_fetch`` turns a picklable :class:`FetchSpec` into
-``fetch(frame_idx, seed)``.  The port fetches for the on-device pipeline
-only (:func:`~pointgnn_tpu_torch.train.device_pipeline.build_device_fetch`:
-KITTI read, crop-paste, augmentation, packing); the host-built graph
-fetch is not ported.
+``fetch(frame_idx, seed)``: with a ``device_spec``, the on-device
+pipeline's fetch
+(:func:`~pointgnn_tpu_torch.train.device_pipeline.build_device_fetch`:
+KITTI read, crop-paste, augmentation, packing); without one, the
+host-built graph's (:func:`build_host_fetch`: the same read, crop-paste
+and augmentation, then the multi-level graph, the input features, label
+assignment and box encoding on the host, as a
+:class:`~pointgnn_tpu_torch.graph.pad.FrameData`).
 
 ``DataProvider`` is the asynchronous in-memory cache of the reference's
 trainer: a worker pool refreshes cached frames in the background, a
@@ -23,12 +27,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from pointgnn_tpu_torch.data.kitti import KittiDataset
-
-HOST_GRAPH_FETCH = (
-    "the host-built graph fetch (a FetchSpec without device_spec) is not "
-    "ported to the PyTorch port (ROADMAP.md Queue 1 item 6); train with "
-    "device-built graphs"
-)
+from pointgnn_tpu_torch.graph.pad import FrameData
 
 
 class DatasetSpec(NamedTuple):
@@ -75,17 +74,87 @@ class FetchSpec(NamedTuple):
     is_eval: bool = False  # eval skips crop_aug and augmentation
     # a graph.device_builder.DeviceGraphSpec: the fetch returns packed
     # points and packed GT boxes, and the train step builds the graph,
-    # assigns labels and encodes boxes on the device
+    # assigns labels and encodes boxes on the device; None: the fetch
+    # builds the graph on the host
     device_spec: Optional[object] = None
 
 
 def build_fetch(spec: FetchSpec):
     """Instantiate the fetch closure from a spec (worker-side)."""
     if spec.device_spec is None:
-        raise NotImplementedError(HOST_GRAPH_FETCH)
+        return build_host_fetch(spec)
     from pointgnn_tpu_torch.train.device_pipeline import build_device_fetch
 
     return build_device_fetch(spec)
+
+
+def build_host_fetch(spec: FetchSpec):
+    """``fetch(frame_idx, seed) -> FrameData`` of the host-built graph:
+    points (with RGB) and labels, crop-aug samples pasted, the
+    augmentation chain, the training graph (``graph_gen_kwargs``), the
+    input features, a label per last-level vertex and its encoded box.
+    Every draw comes from ``np.random.default_rng(seed)`` in the JAX
+    package's order; the arrays have the JAX fetch's dtypes."""
+    from pointgnn_tpu_torch.data import augment
+    from pointgnn_tpu_torch.data.labels import get_label_assigner
+    from pointgnn_tpu_torch.graph import builder
+    from pointgnn_tpu_torch.infer import select_input_features
+    from pointgnn_tpu_torch.model import encodings
+
+    dataset = spec.dataset.build()
+    config, train_config = spec.config, spec.train_config
+    aug_fn = augment.get_data_aug(
+        () if spec.is_eval else train_config.get("data_aug_configs", ())
+    )
+    sampler = None
+    if not spec.is_eval and "crop_aug" in train_config:
+        from pointgnn_tpu_torch.data.crop_aug import CropAugSampler
+
+        sampler = CropAugSampler(train_config["crop_aug"]["crop_filename"])
+    assigner = get_label_assigner(config["label_method"])
+    box_encoding_fn = encodings.get_box_encoding_fn(
+        config["box_encoding_method"]
+    )
+    expend_factor = tuple(train_config.get("expend_factor", (1.0, 1.0, 1.0)))
+    last_level = config["model_kwargs"]["layer_configs"][-1]["graph_level"]
+
+    def fetch(frame_idx: int, seed: Optional[int] = None) -> FrameData:
+        rng = np.random.default_rng(seed)
+        points = dataset.get_cam_points_in_image_with_rgb(
+            frame_idx, config.get("downsample_by_voxel_size")
+        )
+        labels = dataset.get_label(frame_idx)
+        if sampler is not None:
+            points, labels = sampler.crop_aug(
+                points,
+                labels,
+                sample_rate=train_config["crop_aug"]["sample_rate"],
+                parser_kwargs=train_config["crop_aug"]["parser_kwargs"],
+                rng=rng,
+            )
+        points, labels = aug_fn(points, labels, rng=rng)
+        vcl, kil, el = builder.gen_multi_level_local_graph_v3(
+            points.xyz, **config["graph_gen_kwargs"], rng=rng
+        )
+        features = select_input_features(
+            points.attr, config["input_features"]
+        )
+        last_xyz = vcl[last_level + 1]
+        cls_labels, boxes_3d, valid_boxes, label_map = assigner(
+            labels, last_xyz, expend_factor
+        )
+        encoded = box_encoding_fn(cls_labels, last_xyz, boxes_3d, label_map)
+        return FrameData(
+            features=features.astype(np.float32),
+            vertex_coord_list=[v.astype(np.float32) for v in vcl],
+            keypoint_indices_list=[k.astype(np.int32) for k in kil],
+            edges_list=[e.astype(np.int32) for e in el],
+            cls_labels=cls_labels.astype(np.int32),
+            encoded_boxes=encoded.astype(np.float32),
+            valid_boxes=valid_boxes.astype(np.float32),
+        )
+
+    return fetch
 
 
 # ---------------------------------------------------------------------------

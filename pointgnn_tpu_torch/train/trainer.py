@@ -2,17 +2,23 @@
 :mod:`pointgnn_tpu.train.trainer`): the epoch loop, streaming metrics,
 summaries, checkpoint and resume.
 
-Each step trains on a batch of ``batch_size`` frames on device-built
-slab graphs (graph build, label assignment and box encoding inside the
-step; per-step graph randomization), combined with the reference's
-graph-union endpoint weighting.  The epoch bookkeeping is the JAX
-package's: resume recomputes the epoch from the restored step, metrics
-reset per epoch, and checkpoints (with the frozen configs) are written
-every ``save_every_epoch`` epochs, at ``max_steps`` and at exit.
+Each step trains on a batch of ``batch_size`` frames, on device-built
+slab graphs (``"device_graph"`` true, or unset for the NONE-normalization
+configs: graph build, label assignment and box encoding inside the step;
+per-step graph randomization, each frame's loss combined with the
+reference's graph-union endpoint weighting) or on host-built graphs
+(``"device_graph": false``: the provider's workers build each frame's
+graph, labels and encoded boxes; the prefetch thread unions the step's
+frames into one graph padded to ``capacity`` and copies it to the card;
+the model runs the segment path in 16 checkpointed edge chunks).  The
+epoch bookkeeping is the JAX package's: resume recomputes the epoch from
+the restored step, metrics reset per epoch, and checkpoints (with the
+frozen configs) are written every ``save_every_epoch`` epochs, at
+``max_steps`` and at exit.
 
-Not ported: host-graph training (``device_graph: false``) and training
-on device-built edge lists (``ROADMAP.md`` Queue 1 item 6), and data
-parallelism over several cards (item 7); each raises.
+Not ported: training on device-built edge lists and normalized MLPs
+(``ROADMAP.md`` Queue 1 item 6), and data parallelism over several cards
+(item 7); each raises.
 """
 
 import collections
@@ -24,6 +30,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pointgnn_tpu_torch import configs as cfg_mod
+from pointgnn_tpu_torch.graph import pad
 from pointgnn_tpu_torch.infer import input_feature_dim
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.losses import loss_config
@@ -38,10 +46,9 @@ from pointgnn_tpu_torch.train.pipeline import DataProvider, FetchSpec
 from pointgnn_tpu_torch.utils import thread_warnings
 from pointgnn_tpu_torch.utils.device import resolve_device
 
-HOST_GRAPH_TRAINING = (
-    "host-graph training (device_graph: false, or a config with "
-    "normalized MLPs) is not ported to the PyTorch port (ROADMAP.md "
-    "Queue 1 item 6)"
+NORMALIZED_MLPS = (
+    "training a config with normalized MLPs (BN, instance norm) is not "
+    "ported to the PyTorch port (ROADMAP.md Queue 1 item 6)"
 )
 DATA_PARALLEL = (
     "data-parallel training over %d devices (NUM_GPU x COPY_PER_GPU) is "
@@ -107,6 +114,7 @@ class Trainer:
         train_config: Dict,
         fetch_spec: FetchSpec,
         num_frames: int,
+        capacity: Optional[pad.GraphCapacity] = None,
         n_devices: Optional[int] = None,
         seed: int = 0,
         device=None,
@@ -116,32 +124,40 @@ class Trainer:
         self.train_config = train_config
         self.num_frames = num_frames
         enc_len = encodings.get_encoding_len(config["box_encoding_method"])
+        if not _all_norms_none(config):
+            raise NotImplementedError(NORMALIZED_MLPS)
         # an explicit train_config value wins; unset, NONE-normalization
         # configs route to the device graph
         dg = train_config.get("device_graph")
         if dg is None:
-            dg = _all_norms_none(config)
-            if dg:
-                print(
-                    "device_graph training auto-enabled (NONE-"
-                    "normalization config): graph construction + label "
-                    "assignment + box encoding run inside the train step"
-                )
-        if not dg:
-            raise NotImplementedError(HOST_GRAPH_TRAINING)
-        dspec, model_extra = dpipe.resolve_device_setup(
-            config,
-            spec=train_config.get("device_graph_spec"),
-            slab=train_config.get("device_graph_slab", "auto"),
-        )
-        self.device_spec = dspec
-        # freeze the resolved setup into the train_config saved beside
-        # every checkpoint, so a restart or an evaluator reads the graphs
-        # this run trained on instead of resolving them again
-        self.train_config = dict(train_config)
-        self.train_config["device_graph"] = True
-        self.train_config["device_graph_slab"] = bool(dspec.slab_level1)
-        self.train_config["device_graph_spec"] = dspec
+            dg = True
+            print(
+                "device_graph training auto-enabled (NONE-"
+                "normalization config): graph construction + label "
+                "assignment + box encoding run inside the train step"
+            )
+        self.device_graph = bool(dg)
+        self.device_spec = None
+        graph_builder = None
+        model_extra = {}
+        if self.device_graph:
+            dspec, model_extra = dpipe.resolve_device_setup(
+                config,
+                spec=train_config.get("device_graph_spec"),
+                slab=train_config.get("device_graph_slab", "auto"),
+            )
+            self.device_spec = dspec
+            # freeze the resolved setup into the train_config saved
+            # beside every checkpoint, so a restart or an evaluator reads
+            # the graphs this run trained on instead of resolving them
+            # again
+            self.train_config = dict(train_config)
+            self.train_config["device_graph"] = True
+            self.train_config["device_graph_slab"] = bool(dspec.slab_level1)
+            self.train_config["device_graph_spec"] = dspec
+            fetch_spec = fetch_spec._replace(device_spec=dspec)
+        else:
+            fetch_spec = fetch_spec._replace(device_spec=None)
         self.model = get_model(config["model_name"])(
             num_classes=config["num_classes"],
             box_encoding_len=enc_len,
@@ -149,10 +165,14 @@ class Trainer:
             **model_extra,
             **config["model_kwargs"],
         )
-        graph_builder = dpipe.make_graph_builder(
-            dspec, self.model.output_graph_level, config
-        )
-        fetch_spec = fetch_spec._replace(device_spec=dspec)
+        if self.device_graph:
+            graph_builder = dpipe.make_graph_builder(
+                self.device_spec, self.model.output_graph_level, config
+            )
+        if capacity is None:
+            capacity = cfg_mod.tpu_settings(config["label_method"])[
+                "frame_capacity"]
+        self.capacity = capacity
 
         # the reference's NUM_GPU x COPY_PER_GPU towers become
         # min(requested, available) cards
@@ -174,7 +194,7 @@ class Trainer:
         # reference's add_rnd3d grid shift and random point per voxel at
         # every fetch; without it every epoch trains on one frozen graph
         # per frame
-        graph_rnd = train_config.get(
+        graph_rnd = self.device_graph and train_config.get(
             "device_graph_rnd3d",
             config["graph_gen_kwargs"].get("add_rnd3d", True),
         )
@@ -183,7 +203,8 @@ class Trainer:
             self.optimizer,
             loss_config(config),
             graph_builder,
-            frames_per_device=self.frames_per_device,
+            frames_per_device=(self.frames_per_device if self.device_graph
+                               else 1),
             with_metrics=True,
             graph_rng_seed=seed if graph_rnd else None,
         )
@@ -252,11 +273,17 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def prepare_batch(self, frame_indices):
-        """Fetch, stack and copy one step's frames to the card."""
+        """Fetch one step's frames and copy them to the card: stacked
+        (device graphs) or unioned into one padded graph (host graphs;
+        overflow warns and truncates)."""
         if len(frame_indices) != self.batch_size:
             raise ValueError("a step takes %d frames, got %d"
                              % (self.batch_size, len(frame_indices)))
         frames = self.provider.provide_batch(frame_indices)
+        if not self.device_graph:
+            return pad.to_device(
+                pad.batch_and_pad(frames, self.capacity, self._rng),
+                self.device)
         return dpipe.frames_to_device(dpipe.stack_frames(frames),
                                       self.device)
 

@@ -4,28 +4,25 @@
 The counterpart of ``run.py``, with the same flags and defaults plus
 ``--device`` (``cuda`` unless asked otherwise):
 
-    python3 run_torch.py <checkpoint_path> --fast [--dataset_root_dir D] \
+    python3 run_torch.py <checkpoint_path> [--fast] [--dataset_root_dir D] \
         [--dataset_split_file F] [--output_dir O] [--test] \
         [--no-box-merge] [--no-box-score] [--num_frames N] [--device cpu]
 
 The checkpoint directory holds a frozen ``config`` and a checkpoint in
 the port's format (``pointgnn_tpu_torch.train.checkpoint``; convert a
 JAX one with ``convert_jax_checkpoint.py``).  Detections are written in
-KITTI label format to ``<output_dir>/data/*.txt``.  ``--fast`` (graphs
-built on the device) is required: the host-built graph path is not
-ported.  The last line of the output is the launch count of each
-hand-written kernel in the run, as JSON.
+KITTI label format to ``<output_dir>/data/*.txt``.  By default each
+frame's graph is built on the host and padded to the config family's
+runtime capacity (grown to fit), and the network runs on the card in f32
+on the segment path; ``--fast`` builds the graphs on the device (the
+slab kernels, bf16).  The last line of the output is the launch count of
+each hand-written kernel in the run, as JSON (all 0 without ``--fast``).
 """
 
 import argparse
 import json
 import os
 import sys
-
-NOT_PORTED = (
-    "run_torch.py: the host-built graph is not ported to the PyTorch "
-    "port; pass --fast to build graphs on the device"
-)
 
 
 def parse_args(argv=None):
@@ -39,8 +36,7 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--fast", dest="fast", action="store_true", default=False,
-        help="Build graphs on the device (required: the host-built graph "
-        "is not ported)",
+        help="Build graphs on the device (default: on the host)",
     )
     parser.add_argument(
         "--test", dest="test", action="store_true", default=False,
@@ -80,9 +76,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.fast:
-        print(NOT_PORTED, file=sys.stderr)
-        return 2
 
     from pointgnn_tpu_torch.data.kitti import KittiDataset
     from pointgnn_tpu_torch.infer import InferencePipeline
@@ -128,11 +121,14 @@ def main(argv=None):
         use_box_merge=args.use_box_merge,
         use_box_score=args.use_box_score,
         device=args.device,
+        on_device_graph=args.fast,
     )
     print("Restored step %d from %s" % (
         pipeline.restored_step, args.checkpoint_path
     ))
     wrappers = {"slab_edge_max": slab.slab_edge_max,
+                "slab_edge_max_backward": slab.slab_edge_max_backward,
+                "edge_tail_max": edge_tail.edge_tail_max,
                 "fused_edge_max": edge_tail.fused_edge_max}
     before = {k: fn.launches for k, fn in wrappers.items()}
     pipeline.run_dataset(

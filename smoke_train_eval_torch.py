@@ -2,27 +2,31 @@
 """End-to-end acceptance smoke of the PyTorch/CUDA port: train ->
 evaluate -> detect -> official KITTI AP.
 
-The counterpart of ``tools/smoke_train_eval.py --device_graph``, with
-its recipe: a synthetic KITTI tree (``utils/synthetic_kitti.py``), a
-Point-GNN (Car, T=1 by default) overfit on its frames through
-``Trainer`` on device-built slab graphs (focal loss, adam at lr 1e-3,
-batch 1, no augmentation, frames refetched every 4 servings), the last
-checkpoint evaluated by ``Evaluator``, the tree served by
-``InferencePipeline.run_dataset`` from that checkpoint, and the
-detections scored by the port's KITTI AP evaluator.  Exits non-zero when
-the minimum over classes of the BEV moderate AP is below
-``--min_bev_ap`` (or the mean 3D moderate AP below ``--min_ap``).
+The counterpart of ``tools/smoke_train_eval.py``, with its two recipes:
+a synthetic KITTI tree (``utils/synthetic_kitti.py``) and a Point-GNN
+(Car, T=1 by default) overfit on its frames through ``Trainer`` (focal
+loss, adam at lr 1e-3, no augmentation, frames refetched every 4
+servings), by default on host-built graphs at batch 2 (1200 steps for
+Car, the training capacity (32768, 12288, 12288) vertices / (131072,
+524288) edges), with ``--device_graph`` on device-built slab graphs at
+batch 1 (2400 steps).  The last checkpoint is evaluated by ``Evaluator``
+and then serves the tree through ``InferencePipeline.run_dataset`` twice,
+on host-built graphs (at the eval capacity, 4x the training edges) and on
+device-built graphs (``fast``); the port's KITTI AP evaluator scores both.
+Exits non-zero when the minimum over both passes and over classes of the
+BEV moderate AP is below ``--min_bev_ap`` (or the lower of the passes'
+mean 3D moderate AP below ``--min_ap``).
 
-    python3 smoke_train_eval_torch.py [workdir] [--steps N] [--T 1] \
-        [--frames F] [--label_method Car] [--min_bev_ap 85] [--device cpu]
+    python3 smoke_train_eval_torch.py [workdir] [--device_graph] \
+        [--steps N] [--T 1] [--frames F] [--label_method Car] \
+        [--min_bev_ap 85] [--device cpu]
 
-Not run: the JAX tool's host-graph pass (the host-built graph is not
-ported) and its ``--oracle`` (it needs TensorFlow and the reference's
-checkpoints); the script says so, and takes neither ``--oracle`` nor
-``--device_graph`` (it always trains on device graphs).  The last line of the output is JSON:
-the AP table, the gated values, the wall time of each stage, the
-training steps per second, ``run_dataset``'s buckets per frame, the
-KITTI conversion per frame and each stage's kernel launches.
+Not run: the JAX tool's ``--oracle`` (it needs TensorFlow and the
+reference's checkpoints); the script says so.  The last line of the
+output is JSON: the AP table of each pass, the gated values, the wall
+time of each stage, the training steps per second, ``run_dataset``'s
+buckets per frame and the KITTI conversion per frame of each pass, and
+each stage's kernel launches.
 """
 
 import argparse
@@ -35,21 +39,29 @@ import time
 import numpy as np
 
 SKIPPED = {
-    "host": "the host-built graph (the JAX tool's fast=False pass) is not "
-            "ported (ROADMAP.md Queue 1 item 6)",
     "oracle": "the real-weight parity oracle needs TensorFlow and the "
               "reference's trained checkpoints, which the repository does "
               "not hold",
 }
+# the JAX tool's capacities: host-graph training, and serving on host
+# graphs with 4x the edges (a model trained on uncapped neighborhoods is
+# mis-scored when the padded graph truncates them)
+TRAIN_CAPACITY = dict(vertices=(32768, 12288, 12288), edges=(131072, 524288))
+EVAL_CAPACITY = dict(vertices=(32768, 12288, 12288), edges=(524288, 2097152))
+PASSES = (("host", False), ("fast(on-device)", True))
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("workdir", nargs="?", default="")
+    parser.add_argument("--device_graph", action="store_true",
+                        help="train on device-built slab graphs at batch 1 "
+                             "(default: host-built graphs at batch 2)")
     parser.add_argument("--steps", type=int, default=None,
                         help="default 1200 sample-equivalent steps of the "
                              "JAX tool, scaled by frames / 14 and by 2 / "
-                             "batch (2400 for Car at batch 1)")
+                             "batch (1200 for Car on host graphs, 2400 "
+                             "with --device_graph)")
     parser.add_argument("--T", type=int, default=1)
     parser.add_argument("--frames", type=int, default=None,
                         help="default 14 per class of the family: the "
@@ -73,14 +85,15 @@ def parse_args(argv=None):
 
 
 def recipe(args):
-    """``(config, train_config)`` of the JAX tool's ``--device_graph``
-    mode; fills ``args.frames`` and ``args.steps`` when unset."""
+    """``(config, train_config)`` of the JAX tool's recipe (host-built
+    graphs, or ``--device_graph``); fills ``args.frames`` and
+    ``args.steps`` when unset."""
     from pointgnn_tpu_torch import configs
 
     n_classes = 2 if args.label_method == "Pedestrian_and_Cyclist" else 1
     if args.frames is None:
         args.frames = 14 * n_classes
-    batch = 1  # one frame per device on the device graph
+    batch = 1 if args.device_graph else 2
     if args.steps is None:
         args.steps = int(1200 * (args.frames / 14) * (2 / batch))
     config = configs.model_config(args.label_method, T=args.T)
@@ -108,7 +121,9 @@ def recipe(args):
             "decay_step": args.steps,
             # no augmentation: a clean overfit signal
             "data_aug_configs": [],
-            "device_graph": True,
+            # pinned: NONE-norm configs would otherwise auto-route to
+            # the device graph
+            "device_graph": bool(args.device_graph),
         }
     )
     return config, train_config
@@ -123,14 +138,18 @@ def _gt_counts(gt_dir):
     return counts
 
 
-def run(args, config, train_config, serve_spec=None) -> int:
+def run(args, config, train_config, serve_spec=None, train_capacity=None,
+        eval_capacity=None) -> int:
     """Train, evaluate, serve and score; returns the exit code.
-    ``serve_spec`` sizes the serving graph (the config's runtime spec
-    when None)."""
+    ``serve_spec`` sizes the fast pass's graph (the config's runtime spec
+    when None); ``train_capacity`` and ``eval_capacity`` the host-built
+    graphs of training and of the host pass (``TRAIN_CAPACITY`` and
+    ``EVAL_CAPACITY`` when None)."""
     from pointgnn_tpu_torch import configs
     from pointgnn_tpu_torch.data.kitti import KittiDataset
+    from pointgnn_tpu_torch.graph.pad import GraphCapacity
     from pointgnn_tpu_torch.infer import InferencePipeline
-    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.nn import edge_tail, slab
     from pointgnn_tpu_torch.postprocess import kitti_eval
     from pointgnn_tpu_torch.train import checkpoint as ckpt
     from pointgnn_tpu_torch.train.evaluator import Evaluator
@@ -139,7 +158,9 @@ def run(args, config, train_config, serve_spec=None) -> int:
     from pointgnn_tpu_torch.utils import synthetic_kitti
 
     wrappers = {"slab_edge_max": slab.slab_edge_max,
-                "slab_edge_max_backward": slab.slab_edge_max_backward}
+                "slab_edge_max_backward": slab.slab_edge_max_backward,
+                "edge_tail_max": edge_tail.edge_tail_max,
+                "fused_edge_max": edge_tail.fused_edge_max}
     launches = {}
 
     def counted(stage, fn):
@@ -165,7 +186,10 @@ def run(args, config, train_config, serve_spec=None) -> int:
 
     trainer = Trainer(config, train_config,
                       FetchSpec(spec, config, train_config),
-                      num_frames=args.frames, device=args.device)
+                      num_frames=args.frames,
+                      capacity=train_capacity or GraphCapacity(
+                          **TRAIN_CAPACITY),
+                      device=args.device)
     try:
         start_step = trainer.restore()
         print("training %d steps..." % args.steps, flush=True)
@@ -174,18 +198,21 @@ def run(args, config, train_config, serve_spec=None) -> int:
         trainer.close()
     steps_run = trainer.global_step - start_step
     step_ms = trainer.step_log["step_ms"]
+    wait_ms = trainer.step_log["wait_ms"]
     frozen_tc = trainer.train_config
     del trainer
     last_step = ckpt.list_checkpoint_steps(train_dir)[-1]
     # a run resumed at its last step trains none
     median_ms = float(np.median(step_ms[1:] or step_ms)) if step_ms else None
+    median_wait = float(np.median(wait_ms[1:] or wait_ms)) if wait_ms \
+        else None
     print("trained %d steps in %.1f s (%.2f steps/s; median step %s ms "
-          "after the first)" % (
+          "after the first, median wait %s ms)" % (
               steps_run, train_s, steps_run / max(train_s, 1e-9),
-              median_ms), flush=True)
+              median_ms, median_wait), flush=True)
 
-    # the new evaluator over the last checkpoint: the eval path on a
-    # trained model
+    # the evaluator over the last checkpoint: the eval path on a trained
+    # model, on the graphs it trained on
     eval_config = dict(configs.eval_config(args.label_method),
                        train_dir=train_dir,
                        eval_dir=os.path.join(work, "eval"))
@@ -221,40 +248,60 @@ def run(args, config, train_config, serve_spec=None) -> int:
 
     for path, why in SKIPPED.items():
         print("%s: skipped (%s)" % (path, why))
-    pipeline = InferencePipeline(config, checkpoint_dir=train_dir,
-                                 device_spec=serve_spec, device=args.device)
-    # the KITTI conversion (projection, clipping, occlusion rescoring)
-    # is in no run_dataset bucket: time it per frame
-    convert_s, detections = [], []
-    to_kitti = pipeline.detections_to_kitti
+    # score both serving paths with the trained weights
+    aps, bev_aps, results, passes = {}, {}, {}, {}
+    for label, fast in PASSES:
+        pipeline = InferencePipeline(
+            config, checkpoint_dir=train_dir, on_device_graph=fast,
+            capacity=None if fast else (
+                eval_capacity or GraphCapacity(**EVAL_CAPACITY)),
+            device_spec=serve_spec if fast else None, device=args.device)
+        # the KITTI conversion (projection, clipping, occlusion
+        # rescoring) is in no run_dataset bucket: time it per frame
+        convert_s, detections = [], []
+        to_kitti = pipeline.detections_to_kitti
 
-    def timed_to_kitti(*a, **kw):
-        t0 = time.perf_counter()
-        labels = to_kitti(*a, **kw)
-        convert_s.append(time.perf_counter() - t0)
-        detections.append(len(labels))
-        return labels
+        def timed_to_kitti(*a, _to_kitti=to_kitti, _convert_s=convert_s,
+                           _detections=detections, **kw):
+            t0 = time.perf_counter()
+            labels = _to_kitti(*a, **kw)
+            _convert_s.append(time.perf_counter() - t0)
+            _detections.append(len(labels))
+            return labels
 
-    pipeline.detections_to_kitti = timed_to_kitti
-    result_dir = os.path.join(work, "results_fast")
-    buckets, serve_s = counted("serve", lambda: pipeline.run_dataset(
-        dataset, result_dir))
-    results = kitti_eval.evaluate(gt_dir, result_dir)
-    label = "fast(on-device)"
-    for key in sorted(results):
-        print("[%s] %s: AP %.2f  AP_R40 %.2f" % (
-            label, key, results[key]["ap"], results[key]["ap_r40"]))
-    keys = [k for k in results if k.endswith("_3d_moderate")] or [
-        "Car_3d_moderate"]
-    ap = float(np.mean([results.get(k, {}).get("ap", 0.0) for k in keys]))
-    bev_keys = [k for k in results if k.endswith("_bev_moderate")] or [
-        "Car_bev_moderate"]
-    # gate on the worst class: one collapsed class fails the run
-    bev = float(np.min([results.get(k, {}).get("ap", 0.0)
-                        for k in bev_keys]))
-    print("3d_moderate AP (mean over classes): fast %.2f  (workdir %s)"
-          % (ap, work))
-    print("bev_moderate AP (min over classes): fast %.2f" % bev)
+        pipeline.detections_to_kitti = timed_to_kitti
+        key = "host" if not fast else "fast"
+        result_dir = os.path.join(work, "results_fast" if fast else "results")
+        buckets, serve_s = counted("serve_" + key, lambda: (
+            pipeline.run_dataset(dataset, result_dir)))
+        res = kitti_eval.evaluate(gt_dir, result_dir)
+        for k in sorted(res):
+            print("[%s] %s: AP %.2f  AP_R40 %.2f" % (
+                label, k, res[k]["ap"], res[k]["ap_r40"]))
+        keys = [k for k in res if k.endswith("_3d_moderate")] or [
+            "Car_3d_moderate"]
+        aps[key] = float(np.mean([res.get(k, {}).get("ap", 0.0)
+                                  for k in keys]))
+        bev_keys = [k for k in res if k.endswith("_bev_moderate")] or [
+            "Car_bev_moderate"]
+        # gate on the worst class: one collapsed class fails the run
+        bev_aps[key] = float(np.min([res.get(k, {}).get("ap", 0.0)
+                                     for k in bev_keys]))
+        results[key] = res
+        passes[key] = {
+            "serve_s": serve_s,
+            "serve_ms_per_frame": {k: 1e3 * v for k, v in buckets.items()},
+            "kitti_conversion_ms_per_frame": [1e3 * t for t in convert_s],
+            "detections_per_frame": detections,
+        }
+        if not fast:
+            passes[key]["capacity"] = [list(pipeline.capacity.vertices),
+                                       list(pipeline.capacity.edges)]
+    print("3d_moderate AP (mean over classes): host %.2f, fast %.2f  "
+          "(workdir %s)" % (aps["host"], aps["fast"], work))
+    print("bev_moderate AP (min over classes): host %.2f, fast %.2f"
+          % (bev_aps["host"], bev_aps["fast"]))
+    ap, bev = min(aps.values()), min(bev_aps.values())
     failed = False
     if args.min_ap >= 0 and ap < args.min_ap:
         print("FAIL: 3D %.2f below --min_ap %.2f" % (ap, args.min_ap))
@@ -265,20 +312,21 @@ def run(args, config, train_config, serve_spec=None) -> int:
         failed = True
     print(json.dumps({
         "passed": not failed,
+        "recipe": "device_graph" if args.device_graph else "host",
         "bev_moderate_min": bev,
         "3d_moderate_mean": ap,
+        "bev_moderate": bev_aps,
+        "3d_moderate": aps,
         "ap": results,
         "steps": steps_run,
         "train_s": train_s,
         "steps_per_s": steps_run / max(train_s, 1e-9),
         "median_step_ms_after_first": median_ms,
+        "median_wait_ms_after_first": median_wait,
         "eval_s": eval_s,
         "eval_frames_per_s": eval_fps,
         "eval_total_loss": eval_results["total_loss"],
-        "serve_s": serve_s,
-        "serve_ms_per_frame": {k: 1e3 * v for k, v in buckets.items()},
-        "kitti_conversion_ms_per_frame": [1e3 * s for s in convert_s],
-        "detections_per_frame": detections,
+        "serve": passes,
         "launches": launches,
     }))
     return 1 if failed else 0

@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (slab_edge_max,
 its backward, edge_tail_max and fused_edge_max) against their plain
 PyTorch versions, the launch counts of the slab, edge-list and "l1"
-serving paths and of a train step, and ``stream`` against ``run_frame``.  They import no JAX, so on a
+serving paths and of a train step, ``stream`` against ``run_frame``, and
+the host-graph program on the card against the CPU.  They import no JAX,
+so on a
 machine without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -120,7 +122,8 @@ def test_serving_launches_once_per_slab_layer(cuda):
     cfg = configs.model_config("Car", T=2)
     spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
                                num_keypoints=NUM_KEYPOINTS)
-    pipe = InferencePipeline(cfg, device_spec=spec, device=cuda)
+    pipe = InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             device=cuda)
     pts, _ = synthetic_lidar_frame(seed=1, n_beams=32, points_per_beam=160)
     before = slab.slab_edge_max.launches
     cls, boxes, scores, _ = pipe.run_frame(pts)
@@ -136,7 +139,8 @@ def test_stream_on_the_card_equals_run_frame(cuda, depth):
     cfg = configs.model_config("Car", T=2)
     spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
                                num_keypoints=NUM_KEYPOINTS)
-    pipe = InferencePipeline(cfg, device_spec=spec, device=cuda)
+    pipe = InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             device=cuda)
     frames = [synthetic_lidar_frame(seed=s, n_beams=32,
                                     points_per_beam=160)[0]
               for s in range(4)]
@@ -425,7 +429,8 @@ def test_edge_serving_launch_counts(cuda, mode, k4_per_frame,
     spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
                                num_keypoints=NUM_KEYPOINTS,
                                per_center_caps=(16, 64))
-    pipe = InferencePipeline(cfg, device_spec=spec, device=cuda, slab=mode)
+    pipe = InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             device=cuda, slab=mode)
     pts, _ = synthetic_lidar_frame(seed=1, n_beams=32, points_per_beam=160)
     k1, k3, k4 = (slab.slab_edge_max.launches,
                   edge_tail.edge_tail_max.launches,
@@ -559,3 +564,39 @@ def test_edge_tail_on_the_device_builders_edge_list(cuda):
     assert torch.equal(out3, out4)
     rel = ((out3 - ref).abs() / (1 + ref.abs())).max().item()
     assert rel <= TOL["bfloat16"], rel
+
+
+def test_host_graph_frame_on_the_card_equals_cpu(cuda):
+    """The host-graph path (``on_device_graph=False``): one graph built
+    once on the host and fed to the card and the CPU, f32 (car T=2 at full
+    width): probabilities and decoded boxes within 1e-3 relative; then
+    ``run_frame`` on the card launches no kernel."""
+    from pointgnn_tpu_torch.graph import pad
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+
+    cfg = configs.model_config("Car", T=2)
+    cap = pad.GraphCapacity((NUM_POINTS, 4096, 4096), (65536, 262144))
+    card = InferencePipeline(cfg, capacity=cap, device=cuda)
+    cpu = InferencePipeline(
+        cfg, params=params_from_jax(params_to_numpy(card.params), "cpu"),
+        capacity=cap, device="cpu")
+    assert not card.on_device_graph and card.compute_dtype is None
+    pts, _ = synthetic_lidar_frame(seed=1, n_beams=32, points_per_beam=160)
+    pts = pts.mask(np.arange(NUM_POINTS))
+    graph = cpu.host_graph(pts, np.random.default_rng(0))
+    outs = [[t.cpu().numpy() for t in p.host_graph_fn(
+        p.params, pad.to_device(graph, p.device))] for p in (card, cpu)]
+    for got, want in zip(*outs):
+        assert np.isfinite(got).all()
+        err = np.abs(got - want) / (1.0 + np.abs(want))
+        assert err.max() <= 1e-3, err.max()
+    counts = [fn.launches for fn in (slab.slab_edge_max,
+                                     slab.slab_edge_max_backward,
+                                     edge_tail.edge_tail_max,
+                                     edge_tail.fused_edge_max)]
+    cls, boxes, scores, _ = card.run_frame(pts, np.random.default_rng(0))
+    assert np.isfinite(boxes).all() and boxes.shape[1:] == (7,)
+    assert counts == [fn.launches for fn in (slab.slab_edge_max,
+                                             slab.slab_edge_max_backward,
+                                             edge_tail.edge_tail_max,
+                                             edge_tail.fused_edge_max)]

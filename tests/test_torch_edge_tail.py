@@ -224,18 +224,28 @@ def test_gnn_tail_matches_jax(compute_dtype):
 
 
 def test_generic_segment_path_is_not_ported():
+    """(Named when the generic segment path raised.)  The segment path is
+    ported: without the tail, the GNN layer reduces the device-built
+    ("src") edge list through the sentinel mask, as the JAX layer does,
+    and gives the tail's output."""
     pxyz, pmask, kxyz, kmask, edges, rng = _geometry(2)
     feats = rng.normal(size=(NK, 32)).astype(np.float32)
-    params = params_from_jax(jax.device_get(
-        jlayers.GraphNetAutoCenter().init(jax.random.PRNGKey(2), 32,
-                                          **GNN_KW)), "cpu")
-    for kw in (dict(pallas_tail=False, edge_sentinel="src"),
-               dict(pallas_tail=True, edge_sentinel="dst")):
-        with pytest.raises(NotImplementedError, match="segment"):
-            tlayers.GraphNetAutoCenter().apply(
-                params, _t(feats), _t(kxyz), edges_src=_t(edges[1][0]),
-                edges_dst=_t(edges[1][1]), **kw, **GNN_KW,
-            )
+    jparams = jax.device_get(jlayers.GraphNetAutoCenter().init(
+        jax.random.PRNGKey(2), 32, **GNN_KW))
+    params = params_from_jax(jparams, "cpu")
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jlayers.GraphNetAutoCenter().apply(
+            jparams, jnp.asarray(feats), jnp.asarray(kxyz),
+            jnp.asarray(edges[1][0]), jnp.asarray(edges[1][1]),
+            vertex_mask=jnp.asarray(kmask.astype(np.float32)),
+            edge_sentinel="src", pallas_tail=False, **GNN_KW))
+    outs = [tlayers.GraphNetAutoCenter().apply(
+        params, _t(feats), _t(kxyz), vertex_mask=_t(kmask.astype(
+            np.float32)), edges_src=_t(edges[1][0]),
+        edges_dst=_t(edges[1][1]), edge_sentinel="src", pallas_tail=tail,
+        **GNN_KW).numpy() for tail in (False, True)]
+    for got in outs:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):

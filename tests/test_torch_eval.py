@@ -246,9 +246,10 @@ def test_eval_repeat_polls(setup, tmp_path, capsys):
 
 
 def test_routing_and_eval_mode(setup):
-    """``"auto"`` follows the frozen train_config; host-graph evaluation
-    raises naming ROADMAP item 6; the eval mode keeps ``pallas_tail`` and
-    the forward slab wiring, as the JAX model does."""
+    """``"auto"`` follows the frozen train_config; otherwise the
+    evaluation runs on host-built graphs (4x the family's edge buckets
+    for a checkpoint trained on device graphs); the eval mode keeps
+    ``pallas_tail`` and the forward slab wiring, as the JAX model does."""
     ev = _port_evaluator(setup)
     try:
         assert ev.model.mode == "eval"
@@ -256,11 +257,17 @@ def test_routing_and_eval_mode(setup):
         assert "train" not in ev.model.slab_level1
     finally:
         ev.close()
-    for ec, tc in ((_eval_config(setup), {}),
-                   (_eval_config(setup, device_graph=False),
-                    setup["frozen"])):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            _port_evaluator(setup, ec, tc)
+    frame_cap = configs.tpu_settings("Car")["frame_capacity"]
+    for ec, tc, factor in ((_eval_config(setup), {}, 1),
+                           (_eval_config(setup, device_graph=False),
+                            setup["frozen"], 4)):
+        host = _port_evaluator(setup, ec, tc)
+        host.close()
+        assert not host.device_graph and host.device_spec is None
+        assert host.model.slab_level1 is None
+        assert host.capacity.vertices == frame_cap.vertices
+        assert host.capacity.edges == tuple(factor * e
+                                            for e in frame_cap.edges)
     # an eval_config spec wins over the frozen one
     other = setup["jspec"]._replace(num_keypoints=128)
     ev = _port_evaluator(setup, _eval_config(

@@ -34,7 +34,8 @@ def test_port_imports_without_jax():
                  "utils.synthetic_kitti", "data.augment", "data.crop_aug",
                  "train.pipeline", "train.trainer", "train.summary",
                  "utils.thread_warnings", "train.evaluator",
-                 "postprocess.kitti_eval"):
+                 "postprocess.kitti_eval", "nn.segment", "graph.radius",
+                 "graph.builder", "graph.pad"):
         assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """

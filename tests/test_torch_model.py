@@ -141,9 +141,16 @@ def test_classaware_decode_matches_jax():
 
 
 def test_non_slab_layer_raises():
+    """(Named when the layers raised here.)  Without slab wiring or the
+    edge-list tail the layers take the generic segment path: on a
+    device-built edge-list graph ("src" sentinel) it gives the edge-list tail's outputs; a slab graph has no
+    edge list to reduce, so the model raises."""
     cfg = small_config(T=1)
     tmodel = PointGNN(num_classes=4, box_encoding_len=7,
+                      edge_sentinel="src", edge_chunks=4,
                       **cfg["model_kwargs"])
+    tail = PointGNN(num_classes=4, box_encoding_len=7, edge_sentinel="src",
+                    pallas_tail=True, **cfg["model_kwargs"])
     params = tmodel.init(seed=0, input_dim=1, device="cpu")
     pts, _ = synthetic_lidar_frame(seed=0, n_beams=16, points_per_beam=64)
     spec = tdb.spec_from_config(cfg, num_points=NUM_POINTS,
@@ -151,13 +158,17 @@ def test_non_slab_layer_raises():
     packed = torch.from_numpy(
         tdb.pack_points(pts.xyz, pts.attr[:, :1], NUM_POINTS)
     )
-    # without slab wiring or the edge-list tail, a layer would need the
-    # generic segment path, which is not ported: on the edge-list graph
-    # and on the slab graph alike
-    for flags in (False, True):
-        graph = tdb.build_padded_graph(
-            *tdb.unpack_points(packed),
-            spec._replace(slab_level0=flags, slab_level1=flags),
-        )
-        with pytest.raises(NotImplementedError, match="segment"):
-            tmodel.apply(params, graph)
+    graph = tdb.build_padded_graph(
+        *tdb.unpack_points(packed),
+        spec._replace(slab_level0=False, slab_level1=False),
+    )
+    for got, want in zip(tmodel.apply(params, graph),
+                         tail.apply(params, graph)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    graph = tdb.build_padded_graph(
+        *tdb.unpack_points(packed),
+        spec._replace(slab_level0=True, slab_level1=True),
+    )
+    with pytest.raises(ValueError, match="segment"):
+        tmodel.apply(params, graph)

@@ -8,6 +8,7 @@ Both pipelines run in f32 on the CPU: JAX's
 (its slab kernel in interpret mode) and the port's
 ``InferencePipeline(device="cpu")`` (the plain slab_edge_max)."""
 
+import json
 import os
 
 import numpy as np
@@ -23,6 +24,7 @@ from pointgnn_tpu.train import checkpoint as jax_ckpt
 from pointgnn_tpu_torch import configs, infer
 from pointgnn_tpu_torch.data import kitti
 from pointgnn_tpu_torch.graph import device_builder as tdb
+from pointgnn_tpu_torch.graph import pad as tpad
 from pointgnn_tpu_torch.params import params_from_jax
 from pointgnn_tpu_torch.train import checkpoint as ckpt
 from pointgnn_tpu_torch.utils import synthetic_kitti
@@ -91,6 +93,7 @@ def setup(tmp_path_factory):
 def _port_pipe(cfg, params):
     return infer.InferencePipeline(
         cfg, params=params_from_jax(params, device="cpu"),
+        on_device_graph=True,
         device_spec=tdb.spec_from_config(
             cfg, num_points=NUM_POINTS, num_keypoints=NUM_KEYPOINTS),
         compute_dtype="float32", device="cpu",
@@ -251,7 +254,7 @@ def test_converter_and_cli(setup, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "Restored step 11" in printed and "total:" in printed
     pipe = infer.InferencePipeline(cfg, checkpoint_dir=port_dir,
-                                   device="cpu")
+                                   device="cpu", on_device_graph=True)
     assert pipe.restored_step == 11
     pipe.run_dataset(_dataset(root, kitti), str(tmp_path / "direct"),
                      verbose=False)
@@ -259,10 +262,25 @@ def test_converter_and_cli(setup, tmp_path, capsys):
     assert len(cli) == 3 and cli == _read_labels(str(tmp_path / "direct"))
 
 
-def test_cli_without_fast_refuses(setup, tmp_path, capsys):
-    root, _, _ = setup
+def test_cli_without_fast_refuses(setup, tmp_path, capsys, monkeypatch):
+    """(Named when the CLI refused host graphs.)  Without ``--fast`` the
+    CLI serves host-built graphs (no kernel launch) into ``<checkpoint>/eval``; a directory
+    without a config still exits 2.  The family's runtime capacity is cut
+    to a CPU size (the frames grow it)."""
+    root, cfg, params = setup
     rc = run_torch.main([str(tmp_path), "--device", "cpu",
                          "--dataset_root_dir", root])
-    assert rc != 0
-    assert "not ported" in capsys.readouterr().err
+    assert rc == 2
+    assert "No config file" in capsys.readouterr().err
     assert not os.path.exists(os.path.join(str(tmp_path), "eval"))
+    small = dict(configs.tpu_settings("Car"), runtime_capacity=(
+        tpad.GraphCapacity((2048, 512, 512), (16384, 32768))))
+    monkeypatch.setattr(configs, "tpu_settings", lambda name: small)
+    ck = str(tmp_path / "ck")
+    ckpt.save_checkpoint(ck, 3, {"params": params_from_jax(params, "cpu")},
+                         config=cfg)
+    rc = run_torch.main([ck, "--device", "cpu", "--dataset_root_dir", root])
+    assert rc == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert set(json.loads(last)["launches"].values()) == {0}
+    assert len(_read_labels(os.path.join(ck, "eval"))) == 3

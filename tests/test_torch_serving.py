@@ -60,6 +60,7 @@ def pipelines():
     jpipe.params = params
     tpipe = infer.InferencePipeline(
         cfg, params=params_from_jax(params, device="cpu"),
+        on_device_graph=True,
         device_spec=tdb.spec_from_config(cfg, **kw),
         compute_dtype="float32", device="cpu",
     )

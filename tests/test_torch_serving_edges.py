@@ -50,6 +50,7 @@ def pipelines(request):
     jpipe.params = params
     tpipe = infer.InferencePipeline(
         cfg, params=params_from_jax(params, device="cpu"),
+        on_device_graph=True,
         device_spec=tdb.spec_from_config(cfg, **_spec_kw()),
         compute_dtype="float32", device="cpu", slab=slab,
     )
@@ -109,14 +110,16 @@ def test_preset_slab_flags_cleared_when_slab_off():
     cfg = _small_config()
     spec = tdb.spec_from_config(cfg, **_spec_kw())
     flagged = spec._replace(slab_level1=True, slab_level0=True)
-    pipe = infer.InferencePipeline(cfg, device_spec=flagged, seed=4,
+    pipe = infer.InferencePipeline(cfg, on_device_graph=True,
+                                   device_spec=flagged, seed=4,
                                    device="cpu", compute_dtype="float32",
                                    slab=False)
     assert pipe.slab is False
     assert pipe.device_spec.slab_level1 is False
     assert pipe.device_spec.slab_level0 is False
     assert pipe.model.slab_level1 is None and pipe.model.slab_level0 is None
-    ref = infer.InferencePipeline(cfg, device_spec=spec, seed=4,
+    ref = infer.InferencePipeline(cfg, on_device_graph=True,
+                                  device_spec=spec, seed=4,
                                   device="cpu", compute_dtype="float32",
                                   slab=False)
     pts = _frame(0)
@@ -126,7 +129,8 @@ def test_preset_slab_flags_cleared_when_slab_off():
                     ref.device_fn(ref.params, packed)):
         assert torch.equal(a, b)
     # and "l1" sets level 1 only, on an unflagged spec
-    l1 = infer.InferencePipeline(cfg, device_spec=spec, seed=4,
+    l1 = infer.InferencePipeline(cfg, on_device_graph=True,
+                                 device_spec=spec, seed=4,
                                  device="cpu", slab="l1")
     assert l1.device_spec.slab_level1 and not l1.device_spec.slab_level0
     assert l1.model.slab_level1 is not None and l1.model.slab_level0 is None
@@ -135,15 +139,23 @@ def test_preset_slab_flags_cleared_when_slab_off():
 def test_option_resolution():
     cfg = _small_config()
     spec = tdb.spec_from_config(cfg, **_spec_kw())
-    auto = infer.InferencePipeline(cfg, device_spec=spec, device="cpu")
+    auto = infer.InferencePipeline(cfg, on_device_graph=True,
+                                   device_spec=spec, device="cpu")
     assert auto.slab is True and auto.pallas_tail is True
     assert auto.device_spec.slab_level0 and auto.device_spec.slab_level1
     # slab on both levels needs no edge-list tail
-    slab_only = infer.InferencePipeline(cfg, device_spec=spec,
+    slab_only = infer.InferencePipeline(cfg, on_device_graph=True,
+                                        device_spec=spec,
                                         device="cpu", slab=True,
                                         pallas_tail=False)
     assert slab_only.model.pallas_tail is False
+    # without the tail, the edge-list levels take the generic segment
+    # path (8 edge chunks on device-built graphs, as in JAX)
     for slab in (False, "l1"):
-        with pytest.raises(NotImplementedError, match="segment"):
-            infer.InferencePipeline(cfg, device_spec=spec, device="cpu",
-                                    slab=slab, pallas_tail=False)
+        seg = infer.InferencePipeline(cfg, on_device_graph=True,
+                                      device_spec=spec, device="cpu",
+                                      slab=slab, pallas_tail=False)
+        assert seg.model.pallas_tail is False
+        assert seg.model.edge_chunks == 8
+        assert seg.model.edge_sentinel == "src"
+        assert seg.device_spec.slab_level0 is False

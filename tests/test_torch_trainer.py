@@ -178,11 +178,16 @@ def test_data_provider_matches_jax(tree, monkeypatch, num_workers, every_n,
 
 
 def test_host_graph_paths_raise(tree):
+    """(Named when the host-graph fetch raised.)  The host-graph fetch is
+    ported (a FetchSpec without device_spec builds it;
+    ``tests/test_torch_train_host.py`` holds it against JAX); device-built
+    edge lists for training still raise."""
     root, _ = tree
     cfg = configs.get_config("car_auto_T1_train")
     tspec, _ = _fetch_specs(root, "car_auto_T1_train", cfg, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tpipe.build_fetch(tspec._replace(device_spec=None))
+    frame = tpipe.build_fetch(tspec._replace(device_spec=None))(0, 1)
+    assert type(frame).__name__ == "FrameData"
+    assert len(frame.edges_list) == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tdpipe.resolve_device_setup(cfg, slab=False)
     dspec, _ = tdpipe.resolve_device_setup(cfg, slab=True)
@@ -332,12 +337,20 @@ def test_trainer_checkpoint_resume_and_epochs(tree, tmp_path, capsys,
 
 
 def test_trainer_refuses_what_is_not_ported(tree, tmp_path):
+    """Edge-list training (``device_graph_slab: false``) and normalized
+    MLPs raise naming ROADMAP item 6 (host-graph training, ``device_graph:
+    false``, is ported), more than one device item 7."""
     root, _ = tree
     cfg, tc, fspec = _trainer_setup(root, tmp_path)
-    for bad, item in (({"device_graph": False}, "item 6"),
-                      ({"device_graph_slab": False}, "item 6")):
+    bn = json.loads(json.dumps(cfg))
+    bn["model_kwargs"]["layer_configs"][1]["kwargs"][
+        "edge_MLP_normalization_type"] = "fused_BN_center"
+    for bad_cfg, bad, item in ((cfg, {"device_graph_slab": False},
+                                "item 6"),
+                               (bn, {"device_graph": False}, "item 6")):
         with pytest.raises(NotImplementedError, match=item):
-            Trainer(cfg, dict(tc, **bad), fspec, NUM_FRAMES, device="cpu")
+            Trainer(bad_cfg, dict(tc, **bad), fspec, NUM_FRAMES,
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         Trainer(cfg, tc, fspec, NUM_FRAMES, n_devices=2, device="cpu")
     # NUM_GPU 2 on a machine without a second card trains on one

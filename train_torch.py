@@ -9,9 +9,12 @@ The counterpart of ``train.py``, with the same arguments plus
 
 Config names from the built-in registry (e.g. ``car_auto_T3_train``)
 are accepted in place of file paths.  The run trains on device-built
-slab graphs, checkpoints to the train_config's ``train_dir`` in the
-port's format (``run_torch.py`` serves it) and resumes from the latest
-checkpoint there.  The last line of the output is JSON: the launch count
+slab graphs (``"device_graph"`` true or unset) or on host-built graphs
+(``"device_graph": false``: the provider's workers build each frame's
+graph, the step's frames are unioned and padded to the family's
+``frame_capacity``), checkpoints to the train_config's ``train_dir`` in
+the port's format (``run_torch.py`` serves it) and resumes from the
+latest checkpoint there.  The last line of the output is JSON: the launch count
 of each hand-written kernel in the run, the steps run and, per step, the
 host wall time and the part of it the loop waited for its prefetched
 batch (ms) and the total loss.
