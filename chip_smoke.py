@@ -140,7 +140,26 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     recipe (Car T=1, 14 frames, 1200 steps at batch 2 on host-built
     graphs, both serving passes): exit 0 with BEV moderate AP >= 85 on
     both passes; prints every AP line;
-15. prints one ``{"kernels": [...]}`` line and, last, the
+15. edge-list training and the model options, where no hand-written
+    kernel runs: ``train_torch.py`` with ``"device_graph_slab": false``
+    on a tree of phase 12's recipe (car_auto_T3 at full width and depth,
+    batch 4, lr 0.0125, 4 steps, then resumed to 6: exit 0, a finite loss
+    every step, no K1 or K2 launch, the frozen train_config reads
+    ``false``; the median step after the first and the loop's wait);
+    one such step in this process (every kernel's launches 0, peak device
+    memory, wall against device busy time); ``eval_torch.py`` over its
+    checkpoints (frames/s, a finite eval loss); one edge-list union step
+    on the card against the CPU (4096 points, full width, the same
+    randomization: losses within ``EDGE_LOSS_TOL``, every gradient within
+    ``GRAD_TOL`` of ``(1 + max|g|)``); car_auto_T3 at width 300 with
+    every MLP normalized by ``fused_BN_center`` trained through
+    ``Trainer`` on host-built graphs (batch 1, 3 steps: ms a step, peak
+    device memory under ``BN_PEAK_GIB``, the largest change of a moving
+    average), then one frame served in test mode on a device-built graph
+    (slab and tail resolve off); instance norm, each of the six box
+    codecs and the separated predictor: one forward and box decode on a
+    host graph card against CPU (``HOST_TOL``);
+16. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -659,10 +678,10 @@ def _flat_grads(res):
     return [res[0], res[1]] + [t for wb in res[2] for t in wb]
 
 
-def _train_setup(device, spec=None):
+def _train_setup(device, spec=None, slab="auto"):
     """car_auto_T3 training as a Trainer resolves it on one card: the
-    model in train mode with slab wiring, its graph builder, the loss
-    config and the train config."""
+    model in train mode with slab wiring (``slab=False``: on capped edge
+    lists), its graph builder, the loss config and the train config."""
     from pointgnn_tpu_torch import configs
     from pointgnn_tpu_torch.model import encodings
     from pointgnn_tpu_torch.model.losses import loss_config
@@ -671,7 +690,7 @@ def _train_setup(device, spec=None):
 
     cfg = configs.get_config("car_auto_T3_train")
     tcfg = configs.get_train_config("car_auto_T3_train")
-    dspec, extra = dpipe.resolve_device_setup(cfg, spec)
+    dspec, extra = dpipe.resolve_device_setup(cfg, spec, slab=slab)
     model = PointGNN(
         num_classes=cfg["num_classes"],
         box_encoding_len=encodings.get_encoding_len(
@@ -1998,15 +2017,17 @@ def _train_cli(work, name, tree, device, run, **overrides):
     return last, res.stdout, seconds, tc
 
 
-def _check_train_run(last, stdout, tc, steps, first_step=0):
+def _check_train_run(last, stdout, tc, steps, first_step=0,
+                     launches_per_frame=4):
     """Exit state of one CLI run: the steps it ran, 4 K1 and 4 K2
-    launches per frame of every step, a finite total loss every step, a
-    checkpoint at the last step."""
+    launches per frame of every step (1 level-0 + 3 level-1; 0 on edge
+    lists), a finite total loss every step, a checkpoint at the last
+    step."""
     import numpy as np
 
     from pointgnn_tpu_torch.train import checkpoint as ckpt
 
-    per_step = 4 * tc["batch_size"]  # 1 level-0 + 3 level-1 per frame
+    per_step = launches_per_frame * tc["batch_size"]
     check(last["steps"] == steps, "ran %d steps, want %d"
           % (last["steps"], steps))
     check(last["launches"] == {"slab_edge_max": per_step * steps,
@@ -2929,6 +2950,433 @@ def host_graph_phase(report, device):
     return out
 
 
+EDGE_WORK = os.path.join(HERE, "build", "chip_smoke_edges")
+EDGE_STEPS, EDGE_RESUME_STEPS = 4, 6
+# the union step card vs CPU: loss terms at this relative tolerance,
+# gradients at GRAD_TOL of (1 + max|g|)
+EDGE_LOSS_TOL = 1e-5
+EDGE_SMALL_POINTS, EDGE_SMALL_KEYPOINTS = 4096, 2048
+# batch norm: car_auto_T3 at width 300 with every MLP normalized by
+# fused_BN_center, batch 1 on host-built graphs (the routing of a BN
+# config), unchunked (its statistics are over the whole edge list)
+BN_DEPTH = 3  # GNN layers kept: car_auto_T3's full depth
+BN_STEPS = 3
+BN_PEAK_GIB = 60.0
+CODECS = ("direct_encoding", "center_box_encoding", "voxelnet_box_encoding",
+          "classaware_voxelnet_box_encoding",
+          "classaware_all_class_box_encoding",
+          "classaware_all_class_box_canonical_encoding")
+
+
+def _normalized_config(norm, depth=3):
+    """car_auto_T3 at width 300 with ``depth`` GNN layers and every MLP
+    normalized by ``norm``."""
+    from pointgnn_tpu_torch import configs
+
+    cfg = configs.get_config("car_auto_T3_train")
+    lcs = cfg["model_kwargs"]["layer_configs"]
+    lcs[:] = lcs[:1 + depth] + lcs[-1:]
+    for lc in lcs:
+        for key in lc["kwargs"]:
+            if key.endswith("normalization_type"):
+                lc["kwargs"][key] = norm
+    return cfg
+
+
+def _program_card_vs_cpu(cfg, params_np, graph, device):
+    """The host-graph device program (forward, softmax, box decode) of
+    ``cfg`` on one padded graph, card against CPU with the same
+    parameters: the largest error of the probabilities and the decoded
+    boxes, each within ``HOST_TOL`` of ``(1 + |cpu|)``."""
+    import numpy as np
+
+    from pointgnn_tpu_torch.graph import pad
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.params import params_from_jax
+
+    outs = []
+    for dev in (device, "cpu"):
+        pipe = InferencePipeline(cfg, params=params_from_jax(params_np, dev),
+                                 device=dev)
+        outs.append([t.cpu().numpy() for t in pipe.host_graph_fn(
+            pipe.params, pad.to_device(graph, pipe.device))])
+    errs = {}
+    for key, got, want in zip(("probs", "decoded"), *outs):
+        check(np.isfinite(got).all(), "card %s not finite" % key)
+        err = np.abs(got - want) / (1.0 + np.abs(want))
+        check(err.max() <= HOST_TOL, "%s card vs CPU %.3g > %g"
+              % (key, err.max(), HOST_TOL))
+        errs[key] = float(np.abs(got - want).max())
+    return errs
+
+
+def edge_training_phase(report, device):
+    """Phase 15: edge-list training and the model options.
+    ``train_torch.py`` on device-built edge lists (``device_graph_slab:
+    false``), resumed, and ``eval_torch.py`` over its checkpoints; one
+    such step in this process (launches, peak memory, device split) and a
+    union step card vs CPU; a batch-norm config trained through
+    ``Trainer`` and served; instance norm, the six box codecs and the
+    separated predictor card vs CPU."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.data.kitti import KittiDataset
+    from pointgnn_tpu_torch.graph import device_builder as db, pad
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.nn import mlp
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+    from pointgnn_tpu_torch.parallel import step as step_lib
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.train import optimizers
+    from pointgnn_tpu_torch.train.pipeline import DatasetSpec, FetchSpec
+    from pointgnn_tpu_torch.train.trainer import Trainer
+    from pointgnn_tpu_torch.utils import config_io, synthetic_kitti
+
+    work = EDGE_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    card = card_line()
+    out = {"card": card}
+    launches = {name: 0 for name in kernel_wrappers()}
+
+    def count(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    # 1. train_torch.py on edge lists (phase 12's recipe), then resumed
+    tree = os.path.join(work, "kitti")
+    synthetic_kitti.main(tree, TRAIN_CLI_FRAMES, classes=TRAIN_CLI_CLASSES,
+                         n_ground=TRAIN_CLI_N_GROUND)
+    car = "car_auto_T3_train"
+    common = dict(initial_lr=CAR_CLI_LR, device_graph_slab=False,
+                  save_every_epoch=1, num_load_dataset_workers=2)
+    runs = {}
+    for run, steps, first in (("first", EDGE_STEPS, 0),
+                              ("resume", EDGE_RESUME_STEPS, EDGE_STEPS)):
+        last, stdout, secs, tc = _train_cli(work, car, tree, device,
+                                            "edges_" + run,
+                                            max_steps=steps, **common)
+        runs[run] = dict(_check_train_run(last, stdout, tc, steps - first,
+                                          first, launches_per_frame=0),
+                         seconds=secs)
+        count(last["launches"])
+    frozen = config_io.load_train_config(os.path.join(tc["train_dir"],
+                                                      "train_config"))
+    check(frozen["device_graph"] is True
+          and frozen["device_graph_slab"] is False,
+          "frozen routing %s / %s" % (frozen["device_graph"],
+                                      frozen["device_graph_slab"]))
+    step_ms = runs["first"]["step_ms"][1:] + runs["resume"]["step_ms"][1:]
+    wait_ms = runs["first"]["wait_ms"][1:] + runs["resume"]["wait_ms"][1:]
+    out["train_cli"] = dict(
+        runs=runs, frozen_device_graph_slab=frozen["device_graph_slab"],
+        median_step_ms_after_first=statistics.median(step_ms),
+        median_wait_ms_after_first=statistics.median(wait_ms))
+    print("phase 15: train_torch.py on edge lists (device_graph_slab "
+          "false, batch 4): %d steps (%.1f s) then resumed to %d (%.1f s), "
+          "losses %s / %s, median step %.2f ms after the first, median wait "
+          "%.3f ms, launches %s; frozen device_graph_slab %s [%s]"
+          % (EDGE_STEPS, runs["first"]["seconds"], EDGE_RESUME_STEPS,
+             runs["resume"]["seconds"],
+             [round(v, 4) for v in runs["first"]["losses"]],
+             [round(v, 4) for v in runs["resume"]["losses"]],
+             out["train_cli"]["median_step_ms_after_first"],
+             out["train_cli"]["median_wait_ms_after_first"],
+             {k: launches[k] for k in launches}, frozen["device_graph_slab"],
+             card), flush=True)
+
+    # 2. one edge-list step in this process: every kernel's launches,
+    # peak device memory, wall against device busy time
+    cfg, _ = train_cli_configs(car)
+    tc_in = dict(tc, train_dir=os.path.join(work, "in_process"),
+                 num_load_dataset_workers=0)
+    spec = DatasetSpec.from_kitti_root(
+        tree, os.path.join(tree, "3DOP_splits/train.txt"),
+        cfg["num_classes"])
+    trainer = Trainer(cfg, tc_in, FetchSpec(spec, cfg, tc_in),
+                      num_frames=TRAIN_CLI_FRAMES, device=device)
+    try:
+        m = trainer.model
+        check(m.slab_level0 is None and m.slab_level1 is None
+              and m.edge_sentinel == "src" and m.edge_chunks == 16,
+              "the edge-list trainer's model is not on the segment path")
+        batches = [trainer.prepare_batch(list(range(4 * i, 4 * i + 4)))
+                   for i in range(2)]
+        trainer.train_batch(prepared=batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        wall = []
+        for b in (batches[1], batches[0], batches[1]):
+            t0 = time.perf_counter()
+            aux = trainer.train_batch(prepared=b)
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+            check(np.isfinite(float(aux["total_loss"])),
+                  "edge-list step loss %s" % float(aux["total_loss"]))
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        split = kernel_split(lambda: trainer.train_batch(
+            prepared=batches[0]), calls=1)
+    finally:
+        trainer.close()
+    count(counts)
+    check(not any(counts.values()), "the edge-list step launched %s"
+          % counts)
+    busy = sum(split.values())
+    step = statistics.median(wall)
+    out["train_step"] = dict(wall_ms=wall, device_busy_ms=busy,
+                             idle_share=1.0 - busy / step,
+                             peak_device_gib=peak_gib, launches=counts,
+                             by_kernel=dict(list(short_split(
+                                 split).items())[:8]))
+    print("phase 15: one edge-list step in this process (batch 4): wall "
+          "%.2f ms (median of 3), device busy %.2f ms (idle %.0f%%), peak "
+          "device memory %.2f GiB, launches %s; top kernels %s [%s]"
+          % (step, busy, 100 * out["train_step"]["idle_share"], peak_gib,
+             counts, out["train_step"]["by_kernel"], card), flush=True)
+    del batches, trainer
+    torch.cuda.empty_cache()
+
+    # 3. eval_torch.py over the edge-list checkpoints
+    steps = ckpt.list_checkpoint_steps(tc["train_dir"])
+    ec = dict(configs.eval_config("Car"), train_dir=tc["train_dir"],
+              eval_dir=os.path.join(work, "eval"), max_step=steps[-1],
+              eval_every_second=1)
+    ec_path = os.path.join(work, "eval_config")
+    config_io.save_train_config(ec_path, ec)
+    cmd = [sys.executable, os.path.join(HERE, "eval_torch.py"), ec_path,
+           "--dataset_root_dir", tree, "--dataset_split_file",
+           os.path.join(tree, "3DOP_splits/val.txt"), "--device",
+           device.type]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    eval_s = time.perf_counter() - t0
+    check(res.returncode == 0, "eval_torch.py (edge lists) exited %d:\n%s\n"
+          "%s" % (res.returncode, res.stdout[-4000:], res.stderr[-4000:]))
+    lines = res.stdout.strip().splitlines()
+    fps = [float(mt.group(1)) for mt in (
+        re.match(r"^eval throughput: ([0-9.]+) frames/s", ln)
+        for ln in lines) if mt]
+    check(len(fps) == len(steps), "eval throughput printed %d times for %d "
+          "checkpoints" % (len(fps), len(steps)))
+    eval_launches = json.loads(lines[-1])["launches"]
+    count(eval_launches)
+    check(not any(eval_launches.values()),
+          "edge-list evaluation launched %s" % eval_launches)
+    with open(os.path.join(work, "eval", "scalars.jsonl")) as f:
+        total = {r["step"]: r["value"] for r in map(json.loads, f)
+                 if r["key"] == "total_loss"}
+    check(sorted(total) == steps and all(np.isfinite(v)
+                                         for v in total.values()),
+          "edge-list eval total_loss %s" % total)
+    out["eval_cli"] = dict(seconds=eval_s, checkpoints=steps,
+                           frames_per_s=fps, total_loss=total,
+                           launches=eval_launches)
+    print("phase 15: eval_torch.py (edge lists) evaluated checkpoints %s in "
+          "%.1f s: frames/s %s, total_loss %s [%s]"
+          % (steps, eval_s, fps, {k: round(v, 5) for k, v in total.items()},
+             card), flush=True)
+
+    # 4. one edge-list union step, card vs CPU: full width, reduced
+    # capacity, the same injected graph randomization
+    small = db.spec_from_config(cfg, num_points=EDGE_SMALL_POINTS,
+                                num_keypoints=EDGE_SMALL_KEYPOINTS,
+                                runtime=False)
+    gen = torch.Generator().manual_seed(3)
+    draws = [db.draw_randomization(small.num_points, gen) for _ in range(2)]
+    parity, params_np, paths = {}, None, None
+    reset_counts()
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        _, _, dspec, model, builder, loss_cfg = _train_setup(dev, small,
+                                                             slab=False)
+        if params_np is None:
+            params_np = params_to_numpy(model.init(seed=2, device="cpu"))
+        params = params_from_jax(params_np, dev)
+        leaves = optimizers.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        sums = step_lib.make_union_sums_fn(model, loss_cfg, builder, 2)
+        batch = _train_frames(cfg, dspec, (20, 21), dev, lower_labels=True,
+                              n_beams=32, points_per_beam=120)
+        acc, reg = sums(params, batch, [tuple(x.to(dev) for x in d)
+                                        for d in draws])
+        cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+        loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+        total_loss = cls + loc + reg
+        total_loss.backward()
+        parity[name] = dict(
+            losses=[float(x.detach()) for x in (total_loss, cls, loc, reg)],
+            n_val=float(acc["n_val"]),
+            grads=[t.grad.detach().cpu().numpy() if t.grad is not None
+                   else np.zeros(tuple(t.shape), np.float32)
+                   for t in leaves])
+        paths = _leaf_paths(params)
+    counts = read_counts()
+    count(counts)
+    check(not any(counts.values()), "the card's union step launched %s"
+          % counts)
+    check(parity["card"]["n_val"] == parity["cpu"]["n_val"] > 0,
+          "localization targets differ: %s"
+          % {k: r["n_val"] for k, r in parity.items()})
+    gap = _compare_runs(parity["card"], parity["cpu"], paths)
+    check(gap["loss_rel_err"] <= EDGE_LOSS_TOL,
+          "edge-list losses card vs CPU: rel %.3g > %g"
+          % (gap["loss_rel_err"], EDGE_LOSS_TOL))
+    for path, g in zip(paths, gap["grad_err_scaled"]):
+        check(g <= GRAD_TOL, "edge-list gradient %s: card vs CPU %.3g of (1 "
+              "+ max|g|) > %.3g" % (path, g, GRAD_TOL))
+    out["card_vs_cpu"] = dict(num_points=small.num_points,
+                              num_keypoints=small.num_keypoints,
+                              n_val=parity["card"]["n_val"],
+                              losses={k: r["losses"]
+                                      for k, r in parity.items()},
+                              loss_rel_err=gap["loss_rel_err"],
+                              worst_grad_err_scaled=gap[
+                                  "worst_grad_err_scaled"],
+                              worst_leaf=gap["worst_leaf"])
+    print("phase 15: edge-list union step card vs CPU (2 frames, %d points, "
+          "%d keypoints, full width): losses rel err %.3g (tol %g), worst "
+          "gradient err %.3g of (1 + max|g|) at %s (tol %g) [%s]"
+          % (small.num_points, small.num_keypoints, gap["loss_rel_err"],
+             EDGE_LOSS_TOL, gap["worst_grad_err_scaled"], gap["worst_leaf"],
+             GRAD_TOL, card), flush=True)
+
+    # 5. batch norm: train through Trainer on host graphs, then serve
+    bn_cfg = _normalized_config("fused_BN_center", BN_DEPTH)
+    bn_tc = dict(train_cli_configs(car)[1],
+                 train_dir=os.path.join(work, "bn"), batch_size=1,
+                 initial_lr=CAR_CLI_LR, num_load_dataset_workers=0)
+    bn = Trainer(bn_cfg, bn_tc, FetchSpec(spec, bn_cfg, bn_tc),
+                 num_frames=TRAIN_CLI_FRAMES, device=device)
+    try:
+        check(not bn.device_graph and bn.model._has_bn
+              and bn.model.edge_chunks == 1,
+              "the BN trainer is not on unchunked host graphs")
+        rows = bn.capacity.edges[1]
+        width = bn_cfg["model_kwargs"]["layer_configs"][1]["kwargs"][
+            "edge_MLP_depth_list"][-1]
+        est_gib = rows * (width + 3) * 4 / 2**30
+        print("phase 15: BN step: %d padded level-1 edge rows x %d channels "
+              "x 4 B = %.2f GiB per saved edge tensor, %d GNN layers; each "
+              "layer's edge MLP is recomputed in the backward" % (
+                  rows, width + 3, est_gib, BN_DEPTH), flush=True)
+        def emas():
+            return [t.detach().clone() for k, t in mlp.named_leaves(
+                bn.state.params) if k in mlp.EMA_KEYS]
+
+        before = emas()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bn_ms, bn_losses = [], []
+        for i in range(BN_STEPS):
+            prepared = bn.prepare_batch([i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = bn.train_batch(prepared=prepared)
+            torch.cuda.synchronize()
+            bn_ms.append(1e3 * (time.perf_counter() - t0))
+            bn_losses.append(float(aux["total_loss"]))
+        bn_peak = torch.cuda.max_memory_allocated() / 2**30
+        after = emas()
+        bn_params = params_to_numpy(bn.state.params)
+    finally:
+        bn.close()
+    counts = read_counts()
+    count(counts)
+    check(not any(counts.values()), "the BN steps launched %s" % counts)
+    check(all(np.isfinite(v) for v in bn_losses), "BN losses %s"
+          % bn_losses)
+    check(bn_peak < BN_PEAK_GIB, "BN peak device memory %.2f GiB" % bn_peak)
+    ema_change = max(float((a - b).abs().max()) for a, b in
+                     zip(after, before))
+    check(np.isfinite(ema_change) and ema_change > 0,
+          "the moving averages did not move (%s)" % ema_change)
+    del bn
+    torch.cuda.empty_cache()
+    # test mode, on a device-built graph: slab and tail resolve off
+    ds = KittiDataset(
+        os.path.join(tree, "image/training/image_2"),
+        os.path.join(tree, "velodyne/training/velodyne/"),
+        os.path.join(tree, "calib/training/calib/"),
+        os.path.join(tree, "labels/training/label_2"),
+        num_classes=bn_cfg["num_classes"])
+    pts = ds.get_cam_points_in_image_with_rgb(
+        0, bn_cfg.get("downsample_by_voxel_size"))
+    pipe = InferencePipeline(bn_cfg, params=params_from_jax(bn_params,
+                                                            device),
+                             on_device_graph=True, device=device)
+    check(pipe.slab is False and pipe.pallas_tail is False
+          and pipe.model.mode == "test" and pipe.model.edge_chunks == 1,
+          "BN serving: slab %s, tail %s" % (pipe.slab, pipe.pallas_tail))
+    reset_counts()
+    _, boxes, scores, _ = pipe.run_frame(pts)
+    counts = read_counts()
+    count(counts)
+    check(not any(counts.values()), "BN serving launched %s" % counts)
+    check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+          "BN serving gave non-finite boxes")
+    out["bn"] = dict(depth=BN_DEPTH, rows=rows, est_gib_per_tensor=est_gib,
+                     step_ms=bn_ms, losses=bn_losses, peak_device_gib=bn_peak,
+                     max_ema_change=ema_change, serve_detections=len(boxes),
+                     serve_slab=pipe.slab, serve_tail=pipe.pallas_tail)
+    print("phase 15: BN (fused_BN_center everywhere, car_auto_T3 width %d, "
+          "%d GNN layers, batch 1, host graphs): %d steps, ms %s, losses %s, "
+          "peak device memory %.2f GiB (limit %g), largest EMA change %.4g; "
+          "served one frame in test mode on a device-built graph (slab %s, "
+          "tail %s, %d detections) [%s]"
+          % (width, BN_DEPTH, BN_STEPS, [round(v, 2) for v in bn_ms],
+             [round(v, 4) for v in bn_losses], bn_peak, BN_PEAK_GIB,
+             ema_change, pipe.slab, pipe.pallas_tail, len(boxes), card),
+          flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 6. instance norm, the six codecs and the separated predictor: one
+    # forward and box decode on a host graph of tree frame 0, card vs CPU
+    small_pts = pts.mask(np.arange(min(HOST_SMALL_POINTS, len(pts.xyz))))
+    base = InferencePipeline(cfg, seed=0, device="cpu",
+                             capacity=pad.GraphCapacity(
+                                 (HOST_SMALL_POINTS, 4096, 4096),
+                                 (65536, 262144)))
+    graph = base.host_graph(small_pts, np.random.default_rng(1))
+    base_np = params_to_numpy(base.params)
+    options = {}
+    reset_counts()
+    in_cfg = _normalized_config("IN")
+    options["IN"] = _program_card_vs_cpu(
+        in_cfg, params_to_numpy(InferencePipeline(
+            in_cfg, seed=0, device="cpu").params), graph, device)
+    for codec in CODECS:
+        options[codec] = _program_card_vs_cpu(
+            dict(cfg, box_encoding_method=codec), base_np, graph, device)
+    sep = json.loads(json.dumps(cfg))
+    sep["model_kwargs"]["layer_configs"][-1]["type"] = (
+        "classaware_separated_predictor")
+    options["classaware_separated_predictor"] = _program_card_vs_cpu(
+        sep, params_to_numpy(InferencePipeline(sep, seed=0,
+                                               device="cpu").params),
+        graph, device)
+    counts = read_counts()
+    count(counts)
+    check(not any(counts.values()), "the option forwards launched %s"
+          % counts)
+    out["options_card_vs_cpu"] = dict(points=len(small_pts.xyz),
+                                      tol=HOST_TOL, max_abs_err=options)
+    for key, errs in options.items():
+        print("phase 15: %s forward and decode card vs CPU (%d points, "
+              "f32): max abs err %s (tol %g relative) [%s]"
+              % (key, len(small_pts.xyz), errs, HOST_TOL, card), flush=True)
+    check(not any(launches.values()), "phase 15 launched %s" % launches)
+    out["launches"] = launches
+    shutil.rmtree(work, ignore_errors=True)
+    report["edge_training"] = out
+    return out
+
+
 def main():
     import torch
 
@@ -2994,6 +3442,8 @@ def main():
                  sl["serve_host"]]
     host_k = {name: sum(r.get(name, 0) for r in host_runs)
               for name in kernel_wrappers()}
+    # every launch of phase 15's runs (all 0: no kernel on these paths)
+    edge_k = edge_training_phase(report, device)["launches"]
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -3025,14 +3475,16 @@ def main():
                      + edge["l1"]["launches"]["slab_edge_max"]
                      + kitti["slab_edge_max"] + cli_k1 + eval_k1
                      + smoke_k1 + host_k["slab_edge_max"]
-                     + sl["serve_fast"]["slab_edge_max"]),
+                     + sl["serve_fast"]["slab_edge_max"]
+                     + edge_k["slab_edge_max"]),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
             "kitti_cli": kitti["slab_edge_max"], "train_cli": cli_k1,
             "eval_cli": eval_k1, "smoke_train_eval": smoke_k1,
             "host_graph": host_k["slab_edge_max"],
-            "host_smoke_fast_pass": sl["serve_fast"]["slab_edge_max"]},
+            "host_smoke_fast_pass": sl["serve_fast"]["slab_edge_max"],
+            "edge_list_training_and_options": edge_k["slab_edge_max"]},
         # phase 2 (car_T3 serving shapes), phase 11 (the CLI's spec) and
         # phase 13 (an eval step, f32, bitwise)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
@@ -3063,12 +3515,15 @@ def main():
         # training (3 steps), train_torch.py and the smoke's training,
         # each counted from 0; eval_torch.py launches none
         "launches": (train_k2 + cli_k2 + smoke_k2
-                     + host_k["slab_edge_max_backward"]),
+                     + host_k["slab_edge_max_backward"]
+                     + edge_k["slab_edge_max_backward"]),
         "launches_by_path": {"training": train_k2, "train_cli": cli_k2,
                              "eval_cli": report["eval"]["launches"][
                                  "eval_cli_K2"],
                              "smoke_train_eval": smoke_k2,
-                             "host_graph": host_k["slab_edge_max_backward"]},
+                             "host_graph": host_k["slab_edge_max_backward"],
+                             "edge_list_training_and_options": edge_k[
+                                 "slab_edge_max_backward"]},
         # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
         "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
                            + [r["k2_max_abs_err"] for r in ped_rows]),
@@ -3096,7 +3551,8 @@ def main():
         launches = {"edge_serving": edge["edges"]["launches"][name],
                     "l1_serving": edge["l1"]["launches"][name],
                     "kitti_cli": kitti.get(name, 0),
-                    "host_graph": host_k[name]}
+                    "host_graph": host_k[name],
+                    "edge_list_training_and_options": edge_k[name]}
         key = "K3" if name == "edge_tail_max" else "K4"
         lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])
                 for lvl in ("L0", "L1")}

@@ -10,8 +10,10 @@ Implemented so far: serving (``infer.InferencePipeline``: the
 two-level on-device graph on the slab and edge-list paths, or the
 host-built graph on the generic segment path; ``stream`` and
 ``run_dataset`` over a KITTI tree, driven by ``run_torch.py``),
-single-device training and evaluation on either graph (``Trainer``,
-``Evaluator``, ``train_torch.py``, ``eval_torch.py``), carried by the
+single-device training and evaluation on slab graphs, device-built
+edge lists or host-built graphs (``Trainer``, ``Evaluator``,
+``train_torch.py``, ``eval_torch.py``), every normalization, box codec
+and predictor of the reference's configs, carried by the
 hand-written CUDA kernels under ``csrc/`` and the native host code under
 ``csrc/host/`` (merge-NMS, PNG row filters, the radius search, the KITTI
 AP evaluator).

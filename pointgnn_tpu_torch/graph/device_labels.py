@@ -128,4 +128,7 @@ def get_encode(name, label_map):
             encodings.classaware_encode,
             tables=encodings.build_class_tables(label_map),
         )
-    raise KeyError("no ported device encoder for box encoding %r" % name)
+    raise KeyError(
+        "no device encoder for box encoding %r — train on host graphs "
+        "for this config" % name
+    )

@@ -8,9 +8,13 @@ edge list through the generic segment path (host-built graphs with
 and evaluation (``mode="eval"``: the serving forward, with the loss
 settings of the eval mode and no class-wise localization weights).
 
-The JAX model's eval mode also switches batch normalization to its
-stored averages; the port has no normalized MLPs yet (``nn/mlp.py``
-accepts ``NONE`` only), so in the port the mode changes only the loss.
+Batch norms (``nn/mlp.py``) normalize with the batch's statistics in
+training, where ``apply(..., collect_stats=True)`` also returns each
+site's sufficient statistics for the train step's moving averages, and
+with the stored averages in the eval and test modes.  A model with a
+batch norm anywhere (the predictor's normalization defaults to
+``fused_BN_center``, as in the JAX model) runs its edges unchunked, since
+chunks would take the statistics per chunk.
 
 The parameter tree has the JAX package's keys
 (``params[scope]["edge_mlp"][i]["w"]`` ...), so :func:`~pointgnn_tpu_torch.
@@ -37,23 +41,39 @@ _POOLING_TYPES = {"scatter_max_point_set_pooling": "max"}
 _GNN_TYPES = {"scatter_max_graph_auto_center_net": "max"}
 
 
-def _glorot_layer(rng, din, dout, device):
-    """TF-slim fully_connected default init (xavier uniform), zero bias."""
+def _glorot_layer(rng, din, dout, norm, device):
+    """TF-slim fully_connected default init (xavier uniform), zero bias,
+    and the normalization's state."""
     limit = np.sqrt(6.0 / (din + dout))
     w = rng.uniform(-limit, limit, (din, dout)).astype(np.float32)
     return {
         "w": torch.from_numpy(w).to(device),
         "b": torch.zeros(dout, dtype=torch.float32, device=device),
-        "norm": None,
+        "norm": mlp.init_norm(norm, dout, device),
     }
 
 
-def _init_mlp(rng, din, widths, device):
+def _init_mlp(rng, din, widths, device, norm="NONE"):
     dims = [din] + list(widths)
     return [
-        _glorot_layer(rng, dims[i], dims[i + 1], device)
+        _glorot_layer(rng, dims[i], dims[i + 1], norm, device)
         for i in range(len(widths))
     ]
+
+
+def _predictor_norm(pred_cfg) -> str:
+    """The predictor's normalization; the JAX model's default is
+    ``fused_BN_center``."""
+    return pred_cfg["kwargs"].get("normalization_type", "fused_BN_center")
+
+
+def has_bn(layer_configs) -> bool:
+    """Whether any MLP of the layer configs has a batch norm."""
+    return any(
+        key.endswith("normalization_type") and val in mlp.BN_TYPES
+        for cfg in layer_configs
+        for key, val in cfg.get("kwargs", {}).items()
+    ) or _predictor_norm(layer_configs[-1]) in mlp.BN_TYPES
 
 
 class PointGNN:
@@ -108,15 +128,16 @@ class PointGNN:
         # edge rows at a time, forward and backward
         if edge_chunks is None:
             edge_chunks = 16 if mode == "train" else 1
-        self.edge_chunks = edge_chunks
         self.pallas_tail = pallas_tail and mode != "train"
+        # batch norms: batch statistics in training, the stored moving
+        # averages otherwise; the statistics are over the whole edge
+        # list, so edges run in one block
+        self._has_bn = has_bn(self.layer_configs)
+        self.edge_chunks = 1 if self._has_bn else edge_chunks
         pred_cfg = self.layer_configs[-1]
         widths = predictor_widths(pred_cfg["type"])
         if widths is None:
-            raise NotImplementedError(
-                "predictor type %r is not ported (ROADMAP.md Queue 1 "
-                "item 6)" % pred_cfg["type"]
-            )
+            raise ValueError("unknown predictor type %r" % pred_cfg["type"])
         self._predictor = ClassAwarePredictor(**widths)
         self._layers = []
         for cfg in self.layer_configs[:-1]:
@@ -139,53 +160,71 @@ class PointGNN:
         rng = np.random.RandomState(seed)
         params = {}
         dim = input_dim
+
+        def norm(kw, name):
+            return kw.get(name + "_normalization_type", "NONE")
+
         for cfg in self.layer_configs[:-1]:
             kw = cfg["kwargs"]
             if cfg["type"] in _POOLING_TYPES:
                 params[cfg["scope"]] = {
                     "point_mlp": _init_mlp(
-                        rng, dim + 3, kw["point_MLP_depth_list"], device
+                        rng, dim + 3, kw["point_MLP_depth_list"], device,
+                        norm(kw, "point_MLP"),
                     ),
                     "output_mlp": _init_mlp(
                         rng, kw["point_MLP_depth_list"][-1],
                         kw["output_MLP_depth_list"], device,
+                        norm(kw, "output_MLP"),
                     ),
                 }
                 dim = kw["output_MLP_depth_list"][-1]
             else:
                 p = {
                     "edge_mlp": _init_mlp(
-                        rng, dim + 3, kw["edge_MLP_depth_list"], device
+                        rng, dim + 3, kw["edge_MLP_depth_list"], device,
+                        norm(kw, "edge_MLP"),
                     ),
                     "update_mlp": _init_mlp(
                         rng, kw["edge_MLP_depth_list"][-1],
                         kw["update_MLP_depth_list"], device,
+                        norm(kw, "update_MLP"),
                     ),
                 }
                 if kw.get("auto_offset"):
                     p["auto_offset_mlp"] = _init_mlp(
-                        rng, dim, kw["auto_offset_MLP_depth_list"], device
+                        rng, dim, kw["auto_offset_MLP_depth_list"], device,
+                        norm(kw, "auto_offset_MLP"),
                     )
                 params[cfg["scope"]] = p
                 dim = kw["update_MLP_depth_list"][-1]
         pred = self._predictor
+        pred_norm = _predictor_norm(self.layer_configs[-1])
+        loc_in = pred.loc_in_dim(dim, self.num_classes)
         params[self.layer_configs[-1]["scope"]] = {
             "cls": _init_mlp(
-                rng, dim, list(pred.cls_Ks) + [self.num_classes], device
+                rng, dim, list(pred.cls_Ks) + [self.num_classes], device,
+                pred_norm,
             ),
             "loc": [
                 _init_mlp(
-                    rng, dim, list(pred.loc_Ks) + [self.box_encoding_len],
-                    device,
+                    rng, loc_in, list(pred.loc_Ks) + [self.box_encoding_len],
+                    device, pred_norm,
                 )
                 for _ in range(self.num_classes)
             ],
         }
         return params
 
-    def apply(self, params, graph: PaddedGraph):
+    def apply(self, params, graph: PaddedGraph, collect_stats: bool = False):
         """``(logits [K, num_classes], box_encodings [K, num_classes, L])``
-        on the output vertex level."""
+        on the output vertex level.  With ``collect_stats`` (a train-mode
+        model with a batch norm) also the statistics of every batch-norm
+        site, ``{path into params: (sum, sum_sq, count)}``, for
+        :func:`~pointgnn_tpu_torch.nn.mlp.update_bn_ema`."""
+        stats = {} if (collect_stats and self._has_bn) else None
+        bn = dict(bn_use_stored=self._has_bn and self.mode != "train",
+                  bn_collect=stats)
         features = graph.features
         for cfg, layer in zip(self.layer_configs[:-1], self._layers):
             g = cfg["graph_level"]
@@ -194,7 +233,8 @@ class PointGNN:
                       edges_dst=graph.edges_dst[g],
                       edge_sentinel=self.edge_sentinel,
                       pallas_tail=self.pallas_tail,
-                      edge_chunks=self.edge_chunks)
+                      edge_chunks=self.edge_chunks,
+                      bn_prefix=(cfg["scope"],), **bn)
             p = params[cfg["scope"]]
             # slab kwargs only where the graph carries that level's slab
             # metadata; a slab level's edge list is a 1-element dummy,
@@ -234,10 +274,17 @@ class PointGNN:
                     vertex_mask=graph.vertex_mask[g], **kw,
                 )
         pred_cfg = self.layer_configs[-1]
-        return self._predictor.apply(
+        out = self._predictor.apply(
             params[pred_cfg["scope"]], features, self.num_classes,
-            compute_dtype=self.compute_dtype, **pred_cfg["kwargs"],
+            **dict(pred_cfg["kwargs"],
+                   normalization_type=_predictor_norm(pred_cfg)),
+            vertex_mask=graph.vertex_mask[self.output_graph_level],
+            compute_dtype=self.compute_dtype,
+            bn_prefix=(pred_cfg["scope"],), **bn,
         )
+        if collect_stats:
+            return out + (stats or {},)
+        return out
 
     def postprocess(self, logits):
         return torch.softmax(logits, dim=-1)

@@ -1,5 +1,5 @@
 """Graph layers (counterpart of :mod:`pointgnn_tpu.nn.layers`), on the
-slab and the edge-list inference paths.
+slab, the edge-list and the generic segment paths.
 
 - :class:`PointSetPooling`: raw points -> keypoint features, through
   ``slab_edge_max`` at level 0 (slab metadata given) or through
@@ -8,7 +8,8 @@ slab and the edge-list inference paths.
 - :class:`GraphNetAutoCenter`: auto-offset MLP, the A/B fold of the
   first edge-MLP layer, ``slab_edge_max`` or ``fused_edge_max`` at level
   1, the update MLP and the residual.
-- :class:`ClassAwarePredictor`: shared class head + per-class box heads.
+- :class:`ClassAwarePredictor`: shared class head + per-class box heads
+  (``separated``: each box head reads its own slice of the features).
 
 The fold: ``concat(feat_j, x_j - x_k) @ W0 + b0 == A[j] - B[k]`` with
 ``A = feat @ W0a + x @ W0b + b0`` and ``B = x_k @ W0b``, so the kernels
@@ -26,15 +27,24 @@ auto-offset MLP; the coordinates of the radius test get none.
 Everything else takes the generic segment path, as in the JAX layers:
 host-built graphs (``edge_sentinel="dst"``: padded edges carry the
 destination ``K``), and device-built edge lists without the tail
-(``"src"``: the sentinel slots are masked to ``-inf``).  Its edge
-function is the GNN layer's fold ``act(A[src] - B[dst])`` followed by
-the rest of the edge MLP, or the pooling layer's MLP over ``concat(
-feat[src], xyz[src] - ctr[dst])``; the per-center aggregation is
-:func:`~pointgnn_tpu_torch.nn.segment.chunked_aggregate` (``edge_chunks``
-blocks, each recomputed in the backward).  The JAX layers' other max,
-a reshape of a blocked edge list to ``[K, S]`` (``blocked_edges``), has
-no caller there and is not ported.  Normalizations other than NONE are
-not ported and raise (``nn/mlp.py``).
+(``"src"``: the sentinel slots are masked to ``-inf``), which is how
+edge-list training runs.  Its edge function is the GNN layer's fold
+``act(A[src] - B[dst])`` followed by the rest of the edge MLP (NONE
+normalization), the GNN layer's MLP over ``concat(feat[src], xyz[src] -
+shifted[dst])`` (any other normalization), or the pooling layer's MLP
+over ``concat(feat[src], xyz[src] - ctr[dst])``; the per-center
+aggregation is :func:`~pointgnn_tpu_torch.nn.segment.chunked_aggregate`
+(``edge_chunks`` blocks, each recomputed in the backward).  The JAX
+layers' other max, a reshape of a blocked edge list to ``[K, S]``
+(``blocked_edges``), has no caller there and is not ported.
+
+Normalized MLPs (``nn/mlp.py``) run on the segment path only: the slab
+layers raise, and the tail is skipped.  Each MLP normalizes over its
+valid rows (the vertex or center mask; on edges, slots whose source and
+destination are both real), and a batch norm of an edge MLP needs the
+whole edge list in one block (``edge_chunks=1``).  ``bn_use_stored``,
+``bn_collect`` and ``bn_prefix`` carry the batch norms' mode and their
+statistics' keys (paths into the parameters) down to each MLP.
 """
 
 from typing import Optional
@@ -95,15 +105,32 @@ def _apply_sentinel(edge_fn, edge_sentinel, num_src, agg_name):
 
 
 def _segment_agg(edge_fn, edges_src, edges_dst, num_src, num_centers,
-                 out_dim, agg_name, edge_sentinel, edge_chunks, dtype):
+                 out_dim, agg_name, edge_sentinel, edge_chunks, dtype,
+                 coupled_rows=False):
     """The generic segment path: ``edge_fn`` over the edge list, then the
-    chunked per-center segment reduction."""
+    chunked per-center segment reduction (``coupled_rows``: the edge
+    MLP normalizes over its block's rows)."""
     src, dst = edges_src.to(torch.int64), edges_dst.to(torch.int64)
     edge_fn = _apply_sentinel(edge_fn, edge_sentinel, num_src, agg_name)
     return segment.chunked_aggregate(
         edge_fn, src, dst, num_centers, out_dim=out_dim,
         aggregation=agg_name, num_chunks=edge_chunks, dtype=dtype,
+        coupled_rows=coupled_rows,
     )
+
+
+def _edge_bn_mask(norm, edge_chunks, edges_src, edges_dst, num_src,
+                  num_centers):
+    """The rows a batch norm of an edge MLP counts (real source and
+    destination), or None for other normalizations.  Its statistics are
+    over the whole edge list, so it runs in one block."""
+    if norm not in mlp.BN_TYPES:
+        return None
+    if edge_chunks > 1:
+        raise ValueError(
+            "a batch norm in an edge MLP needs edge_chunks=1: chunks would "
+            "take its statistics per chunk (PointGNN sets this itself)")
+    return (edges_src < num_src) & (edges_dst < num_centers)
 
 
 def _tail_agg(tail, table_a, table_b, edges_src, compute_dtype):
@@ -183,11 +210,18 @@ class PointSetPooling:
         edge_sentinel="dst",
         pallas_tail=False,
         slab=None,
+        bn_use_stored=False,
+        bn_collect=None,
+        bn_prefix=(),
         **_unused,
     ):
         num_src, num_centers = point_xyz.shape[0], center_xyz.shape[0]
         dev = point_xyz.device
         pp = params["point_mlp"]
+        bn = dict(bn_use_stored=bn_use_stored, bn_collect=bn_collect)
+        edge_bn_mask = _edge_bn_mask(
+            point_MLP_normalization_type, edge_chunks, edges_src, edges_dst,
+            num_src, num_centers)
         if slab is not None:
             _check_slab(self._agg_name, point_MLP_normalization_type,
                         point_MLP_activation_type)
@@ -214,19 +248,20 @@ class PointSetPooling:
             agg = _tail_agg(pp[1:], table_a, table_b, edges_src,
                             compute_dtype)
         else:
-            mlp.check_norm(point_MLP_normalization_type)
-
             def edge_fn(src, dst_raw):
                 # relative coordinates to the set's keypoint
                 dst = torch.clamp(dst_raw, max=num_centers - 1)
                 sf = _rows(point_features, src)
                 rel = _rows(point_xyz, src) - _rows(center_xyz, dst)
                 edge_in = torch.cat([sf, rel.to(sf.dtype)], dim=-1)
+                # a batch norm sees the whole edge list: the mask is
+                # the list's
                 return mlp.apply_mlp(
                     pp, edge_in, is_logits=False,
                     normalization_type=point_MLP_normalization_type,
                     activation_type=point_MLP_activation_type,
-                    compute_dtype=compute_dtype,
+                    compute_dtype=compute_dtype, mask=edge_bn_mask,
+                    bn_prefix=bn_prefix + ("point_mlp",), **bn,
                 )
 
             agg = _segment_agg(
@@ -234,13 +269,15 @@ class PointSetPooling:
                 pp[-1]["w"].shape[1], self._agg_name, edge_sentinel,
                 edge_chunks,
                 mlp.as_compute_dtype(compute_dtype) or point_features.dtype,
+                coupled_rows=point_MLP_normalization_type != "NONE",
             )
         agg = agg.to(point_features.dtype)
         out = mlp.apply_mlp(
             params["output_mlp"], agg, is_logits=False,
             normalization_type=output_MLP_normalization_type,
             activation_type=output_MLP_activation_type,
-            compute_dtype=compute_dtype,
+            mask=center_mask, compute_dtype=compute_dtype,
+            bn_prefix=bn_prefix + ("output_mlp",), **bn,
         )
         if center_mask is not None:
             out = out * center_mask[:, None].to(out.dtype)
@@ -273,33 +310,70 @@ class GraphNetAutoCenter:
         edge_sentinel="dst",
         pallas_tail=False,
         slab=None,
+        bn_use_stored=False,
+        bn_collect=None,
+        bn_prefix=(),
         **_unused,
     ):
         n = vertex_features.shape[0]
+        bn = dict(bn_use_stored=bn_use_stored, bn_collect=bn_collect)
+        edge_norm = edge_MLP_normalization_type
+        edge_bn_mask = _edge_bn_mask(edge_norm, edge_chunks, edges_src,
+                                     edges_dst, n, n)
         if slab is not None:
-            _check_slab(self._agg_name, edge_MLP_normalization_type,
-                        edge_MLP_activation_type)
+            _check_slab(self._agg_name, edge_norm, edge_MLP_activation_type)
         tail = slab is None and _tail_applies(
             pallas_tail, edge_sentinel, edges_src, n, self._agg_name,
-            edge_MLP_normalization_type, edge_MLP_activation_type)
-        # the segment path folds the first layer for NONE normalization
-        # only; the JAX layer's concatenating edge MLP serves the others
-        mlp.check_norm(edge_MLP_normalization_type)
+            edge_norm, edge_MLP_activation_type)
         # auto-registration offsets shift only the center coordinates
         if auto_offset:
             offset = mlp.apply_mlp(
                 params["auto_offset_mlp"], vertex_features, is_logits=True,
                 normalization_type=auto_offset_MLP_normalization_type,
                 activation_type=auto_offset_MLP_feature_activation_type,
-                compute_dtype=compute_dtype,
+                mask=vertex_mask, compute_dtype=compute_dtype,
+                bn_prefix=bn_prefix + ("auto_offset_mlp",), **bn,
             )
             shifted_xyz = vertex_xyz + offset.to(vertex_xyz.dtype)
         else:
             shifted_xyz = vertex_xyz
         ep = params["edge_mlp"]
-        table_a, table_b = _folded_tables(
-            ep[0], vertex_features, vertex_xyz, shifted_xyz, compute_dtype
-        )
+        act = mlp.ACTIVATIONS[edge_MLP_activation_type]
+        if edge_norm != "NONE":
+            # a normalization between the layers stops the fold: the
+            # edge MLP runs on concat(feat[src], xyz[src] - shifted[dst]),
+            # the source side on the unshifted coordinates (the slab and
+            # tail branches below need NONE)
+            def edge_fn(src, dst_raw):
+                dst = torch.clamp(dst_raw, max=n - 1)
+                s_feat = _rows(vertex_features, src)
+                rel = _rows(vertex_xyz, src) - _rows(shifted_xyz, dst)
+                edge_in = torch.cat([s_feat, rel.to(s_feat.dtype)], dim=-1)
+                # a batch norm sees the whole edge list: the mask is
+                # the list's
+                return mlp.apply_mlp(
+                    ep, edge_in, is_logits=False,
+                    normalization_type=edge_norm,
+                    activation_type=edge_MLP_activation_type,
+                    compute_dtype=compute_dtype, mask=edge_bn_mask,
+                    bn_prefix=bn_prefix + ("edge_mlp",), **bn,
+                )
+        else:
+            table_a, table_b = _folded_tables(
+                ep[0], vertex_features, vertex_xyz, shifted_xyz,
+                compute_dtype)
+
+            def edge_fn(src, dst_raw):
+                dst = torch.clamp(dst_raw, max=n - 1)
+                h = _rows(table_a, src) - _rows(table_b, dst)
+                if act is not None:
+                    h = act(h)
+                for layer in ep[1:]:
+                    h = mlp.dense(layer, h, compute_dtype)
+                    if act is not None:
+                        h = act(h)
+                return h
+
         if slab is not None:
             maskb = (vertex_mask.to(torch.bool) if vertex_mask is not None
                      else torch.ones(n, dtype=torch.bool,
@@ -315,30 +389,19 @@ class GraphNetAutoCenter:
             agg = _tail_agg(ep[1:], table_a, table_b, edges_src,
                             compute_dtype)
         else:
-            act = mlp.ACTIVATIONS[edge_MLP_activation_type]
-
-            def edge_fn(src, dst_raw):
-                dst = torch.clamp(dst_raw, max=n - 1)
-                h = _rows(table_a, src) - _rows(table_b, dst)
-                if act is not None:
-                    h = act(h)
-                for layer in ep[1:]:
-                    h = mlp.dense(layer, h, compute_dtype)
-                    if act is not None:
-                        h = act(h)
-                return h
-
             agg = _segment_agg(
                 edge_fn, edges_src, edges_dst, n, n, ep[-1]["w"].shape[1],
                 self._agg_name, edge_sentinel, edge_chunks,
                 mlp.as_compute_dtype(compute_dtype) or vertex_features.dtype,
+                coupled_rows=edge_norm != "NONE",
             )
         agg = agg.to(vertex_features.dtype)
         update = mlp.apply_mlp(
             params["update_mlp"], agg, is_logits=True,
             normalization_type=update_MLP_normalization_type,
             activation_type=update_MLP_activation_type,
-            compute_dtype=compute_dtype,
+            mask=vertex_mask, compute_dtype=compute_dtype,
+            bn_prefix=bn_prefix + ("update_mlp",), **bn,
         )
         out = update + vertex_features
         if vertex_mask is not None:
@@ -347,11 +410,24 @@ class GraphNetAutoCenter:
 
 
 class ClassAwarePredictor:
-    """Shared cls head + per-class loc heads."""
+    """Shared cls head + per-class loc heads; ``separated``: the features
+    split into ``num_classes`` equal slices, class ``c``'s box head reads
+    slice ``c``."""
 
-    def __init__(self, cls_Ks=(64,), loc_Ks=(64, 64)):
+    def __init__(self, cls_Ks=(64,), loc_Ks=(64, 64), separated=False):
         self.cls_Ks = tuple(cls_Ks)
         self.loc_Ks = tuple(loc_Ks)
+        self.separated = separated
+
+    def loc_in_dim(self, in_dim: int, num_classes: int) -> int:
+        """The input width of each box head."""
+        if not self.separated:
+            return in_dim
+        if in_dim % num_classes:
+            raise ValueError(
+                "the separated predictor splits %d features over %d "
+                "classes" % (in_dim, num_classes))
+        return in_dim // num_classes
 
     def apply(
         self,
@@ -360,30 +436,38 @@ class ClassAwarePredictor:
         num_classes: int,
         normalization_type="NONE",
         activation_type="ReLU",
+        vertex_mask=None,
         compute_dtype=None,
+        bn_use_stored=False,
+        bn_collect=None,
+        bn_prefix=(),
         **_unused,
     ):
         """Returns ``(logits [N, C], box_encodings [N, C, L])``."""
-        logits = mlp.apply_fc(
-            params["cls"], features, is_logits=True,
-            normalization_type=normalization_type,
-            activation_type=activation_type, compute_dtype=compute_dtype,
-        )
+        kw = dict(is_logits=True, normalization_type=normalization_type,
+                  activation_type=activation_type, mask=vertex_mask,
+                  compute_dtype=compute_dtype, bn_use_stored=bn_use_stored,
+                  bn_collect=bn_collect)
+        logits = mlp.apply_fc(params["cls"], features,
+                              bn_prefix=bn_prefix + ("cls",), **kw)
+        if self.separated:
+            width = self.loc_in_dim(features.shape[1], num_classes)
+            inputs = torch.split(features, width, dim=-1)
+        else:
+            inputs = [features] * num_classes
         boxes = [
-            mlp.apply_fc(
-                params["loc"][ci], features, is_logits=True,
-                normalization_type=normalization_type,
-                activation_type=activation_type,
-                compute_dtype=compute_dtype,
-            )
+            mlp.apply_fc(params["loc"][ci], inputs[ci],
+                         bn_prefix=bn_prefix + ("loc", ci), **kw)
             for ci in range(num_classes)
         ]
         return logits, torch.stack(boxes, dim=1)
 
 
 def predictor_widths(predictor_type: str) -> Optional[dict]:
-    """Hidden widths of the predictor types the reference registers."""
+    """The predictor arguments of the types the reference registers."""
     return {
         "classaware_predictor": dict(cls_Ks=(64,), loc_Ks=(64, 64)),
         "classaware_predictor_128": dict(cls_Ks=(128,), loc_Ks=(128, 128)),
+        "classaware_separated_predictor": dict(
+            cls_Ks=(64,), loc_Ks=(64, 64), separated=True),
     }.get(predictor_type)

@@ -26,12 +26,18 @@ segment's atomics (the host-padded runtime graph is more than half
 padding).  So, unlike the JAX function, :func:`chunked_aggregate` leaves
 them out.  It relies on the padded layout putting every real edge before
 the padding (``graph/pad.py``; the device builder's ``"src"`` layout
-pads no destination), counts the real edges once, and stops there: one
-block runs ``edge_fn`` on that prefix; of several blocks, those past it
-are skipped, and the one it ends in runs ``edge_fn`` on the whole block,
-as JAX does, and reduces the block's real prefix.  Every block that runs
+pads no destination: its pad slots carry a real destination and a
+sentinel source, so every slot runs and the layers mask the pad slots to
+the identity), counts the real edges once, and stops there: one block
+runs ``edge_fn`` on that prefix; of several blocks, those past it are
+skipped, and the one it ends in runs ``edge_fn`` on the whole block, as
+JAX does, and reduces the block's real prefix.  Every block that runs
 keeps the block shape, so identical edge rows in two blocks come out of
-the same arithmetic and still tie exactly.
+the same arithmetic and still tie exactly.  An edge function that
+normalizes over its rows (``coupled_rows``: instance norm, batch norm)
+sees what the JAX function gives it: one block runs it on the whole edge
+list, padding included, and reduces the real prefix; a skipped block's
+rows reach only the dropped segment and normalize among themselves.
 """
 
 import torch
@@ -104,6 +110,7 @@ def chunked_aggregate(
     aggregation: str,
     num_chunks: int,
     dtype=torch.float32,
+    coupled_rows: bool = False,
 ):
     """``agg(edge_fn(src, dst))`` over ``num_chunks`` consecutive blocks of
     the edge list, each block's edge rows recomputed in the backward.
@@ -112,13 +119,20 @@ def chunked_aggregate(
     one block.  With ``num_chunks <= 1`` or ``E % num_chunks != 0`` the
     whole list is one block, as in the JAX function.  Real edges come
     first (see the module docstring): edges past the last one with a
-    destination below ``num_centers`` are not reduced."""
+    destination below ``num_centers`` are not reduced.  ``coupled_rows``:
+    ``edge_fn`` normalizes over its rows, so one block runs it on the
+    whole list."""
     E = edges_src.shape[0]
     # the one host sync: where the real prefix ends
     n_real = int((edges_dst < num_centers).sum())
     if num_chunks <= 1 or E % num_chunks != 0:
-        src, dst = edges_src[:n_real], edges_dst[:n_real]
-        return AGGREGATIONS[aggregation](edge_fn(src, dst), dst, num_centers)
+        rows = E if coupled_rows else n_real
+
+        def whole(src, dst):
+            h = edge_fn(src, dst)[:n_real]
+            return AGGREGATIONS[aggregation](h, dst[:n_real], num_centers)
+
+        return _remat(whole, edges_src[:rows], edges_dst[:rows])
     block = E // num_chunks
     src_chunks = edges_src.reshape(num_chunks, block)
     dst_chunks = edges_dst.reshape(num_chunks, block)

@@ -13,9 +13,13 @@ frames (``graph.pad.batch_and_pad``, on the device) and runs the model
 and the loss once over it, as the JAX step does.
 
 The parameters are updated in place (one set of tensors, the leaves of
-``state.params``); the returned state carries the next step count.  The
-data-parallel (mesh) step, with its endpoint reweighting across devices,
-is not ported yet.
+``state.params``); the returned state carries the next step count.  A
+model with batch norms also returns each site's statistics from its
+forward (summed over the step's frames), and after the optimizer update
+the step folds them into the moving averages stored in the parameters
+(``mlp.update_bn_ema``, decay ``bn_decay``).  The data-parallel (mesh)
+step, with its endpoint reweighting and its sum of the statistics across
+devices, is not ported yet.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -23,6 +27,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from pointgnn_tpu_torch.graph import device_builder as db
+from pointgnn_tpu_torch.nn import mlp
 from pointgnn_tpu_torch.train import metrics as metrics_lib
 from pointgnn_tpu_torch.train.optimizers import param_leaves
 
@@ -44,21 +49,28 @@ UNIFY_WEIGHTS = (
 )
 
 
+def _forward(model, params, graph):
+    """``(logits, boxes, bn_stats)``; the statistics are None unless the
+    model trains batch norms."""
+    if model._has_bn and model.mode == "train":
+        return model.apply(params, graph, collect_stats=True)
+    return model.apply(params, graph) + (None,)
+
+
 def make_loss_fn(model, loss_cfg, with_logits: bool = False):
     """The total loss over one labeled graph.
 
     Returns ``loss_fn(params, graph) -> (total, d)``: ``d`` holds the
     model's loss terms (``cls_loss``, ``loc_loss``, ``reg_loss``,
     ``classwise_loc_loss``, ``num_endpoint``, ``num_valid_endpoint``),
-    ``total_loss`` and, ``with_logits``, the detached ``logits``.  The
-    JAX function's ``unify_weights`` (data parallelism) raises; its
-    ``bn_stats`` has no counterpart, since the port's MLPs carry no batch
-    normalization."""
+    ``total_loss``, ``with_logits`` the detached ``logits`` and, for a
+    train-mode model with batch norms, ``bn_stats``.  The JAX function's
+    ``unify_weights`` (data parallelism) raises."""
 
     def loss_fn(params, graph, unify_weights=None):
         if unify_weights is not None:
             raise NotImplementedError(UNIFY_WEIGHTS)
-        logits, boxes = model.apply(params, graph)
+        logits, boxes, bn_stats = _forward(model, params, graph)
         d = model.loss(
             logits, graph.cls_labels, boxes, graph.encoded_boxes,
             graph.valid_boxes, graph.vertex_mask[model.output_graph_level],
@@ -69,6 +81,8 @@ def make_loss_fn(model, loss_cfg, with_logits: bool = False):
         d["total_loss"] = total
         if with_logits:
             d["logits"] = logits.detach()
+        if bn_stats is not None:
+            d["bn_stats"] = bn_stats
         return total, d
 
     return loss_fn
@@ -89,12 +103,14 @@ def make_union_sums_fn(model, loss_cfg, graph_builder,
     Returns ``sums_fn(params, frames_batch, rnds=None) -> (acc,
     reg_loss)``: ``acc`` holds ``cls_w`` (sum of cls_f * n_ep_f),
     ``loc_w``, ``n_ep``, ``n_val``, the summed ``classwise`` breakdown
-    and, with metrics, the summed metric counts.  ``rnds`` holds one
-    frame's graph randomization (``(shift, perm)`` draws) per frame."""
+    and, with metrics, the summed metric counts; for a train-mode model
+    with batch norms, ``bn_stats``, each site's statistics summed over
+    the frames.  ``rnds`` holds one frame's graph randomization (``(shift,
+    perm)`` draws) per frame."""
 
     def frame_terms(params, frame, rnd):
         graph = graph_builder(frame, rnd)
-        logits, boxes = model.apply(params, graph)
+        logits, boxes, bn_stats = _forward(model, params, graph)
         d = model.loss(
             logits, graph.cls_labels, boxes, graph.encoded_boxes,
             graph.valid_boxes, graph.vertex_mask[model.output_graph_level],
@@ -109,6 +125,8 @@ def make_union_sums_fn(model, loss_cfg, graph_builder,
             "n_val": n_val,
             "classwise": d["classwise_loc_loss"],
         }
+        if bn_stats is not None:
+            out["bn_stats"] = bn_stats
         if with_metrics:
             out.update(metrics_lib.device_updates(
                 logits.detach(), graph.cls_labels,
@@ -123,11 +141,18 @@ def make_union_sums_fn(model, loss_cfg, graph_builder,
             rnd = None if rnds is None else rnds[f]
             terms = frame_terms(params, _frame(frames_batch, f), rnd)
             acc = terms if acc is None else {
-                k: acc[k] + v for k, v in terms.items()
+                k: _add(acc[k], v) for k, v in terms.items()
             }
         return acc, model.reg_loss(params)
 
     return sums_fn
+
+
+def _add(a, b):
+    """``a + b`` over tensors and the ``bn_stats`` dicts of tuples."""
+    if isinstance(a, dict):
+        return {k: tuple(x + y for x, y in zip(a[k], b[k])) for k in a}
+    return a + b
 
 
 def graph_generator(seed: int, step: int, frame: int, device):
@@ -147,6 +172,7 @@ def make_train_step(
     frames_per_device: int = 1,
     with_metrics: bool = False,
     graph_rng_seed: Optional[int] = None,
+    bn_decay: float = 0.999,
 ):
     """``step(state, batch) -> (state, aux)`` on one device.
 
@@ -155,7 +181,7 @@ def make_train_step(
     graph and ``graph_rng_seed`` randomizes each frame's graph per step.
     Without it, ``batch`` is a padded union graph on the device
     (``frames_per_device`` must be 1: the frames are unioned before the
-    step)."""
+    step).  ``bn_decay`` is the batch norms' moving-average decay."""
     # f32 training: the dense layers outside the kernels must not drop
     # to TF32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,7 +192,8 @@ def make_train_step(
                 "frames_per_device > 1 needs a graph_builder (host-built "
                 "graphs union the frames in pad.batch_and_pad)"
             )
-        return _make_graph_step(model, optimizer, loss_cfg, with_metrics)
+        return _make_graph_step(model, optimizer, loss_cfg, with_metrics,
+                                bn_decay)
     sums_fn = make_union_sums_fn(model, loss_cfg, graph_builder,
                                  frames_per_device, with_metrics)
 
@@ -196,7 +223,7 @@ def make_train_step(
         if with_metrics:
             for k in ("confusion", "pr_pos_hist", "pr_neg_hist"):
                 aux[k] = acc[k]
-        optimizer.apply(state.opt_state, state.params)
+        _update(optimizer, state, acc.get("bn_stats"), bn_decay)
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}
         return TrainState(state.step + 1, state.params,
@@ -205,7 +232,16 @@ def make_train_step(
     return step
 
 
-def _make_graph_step(model, optimizer, loss_cfg, with_metrics):
+def _update(optimizer, state, bn_stats, bn_decay):
+    """The optimizer update, then the batch norms' moving averages from
+    the statistics of the step's forward (leaves without a gradient,
+    which the optimizer skips)."""
+    optimizer.apply(state.opt_state, state.params)
+    if bn_stats is not None:
+        mlp.update_bn_ema(state.params, bn_stats, bn_decay)
+
+
+def _make_graph_step(model, optimizer, loss_cfg, with_metrics, bn_decay):
     """The step over one padded graph: the loss dict of
     :func:`make_loss_fn`, its backward and the optimizer update."""
     loss_fn = make_loss_fn(model, loss_cfg, with_logits=with_metrics)
@@ -221,7 +257,7 @@ def _make_graph_step(model, optimizer, loss_cfg, with_metrics):
                 graph.vertex_mask[model.output_graph_level],
                 model.num_classes,
             ))
-        optimizer.apply(state.opt_state, state.params)
+        _update(optimizer, state, aux.pop("bn_stats", None), bn_decay)
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}
         return TrainState(state.step + 1, state.params,

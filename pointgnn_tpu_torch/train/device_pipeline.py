@@ -9,10 +9,11 @@ box targets on the device.
 
 The host side is :func:`build_device_fetch`: KITTI read, crop-paste
 and the augmentation chain, then packing, with every random draw from
-the request's own seed.  The port trains on the two-level slab graph
-only (the exact uncapped radius graph, the serving semantics); training
-on device-built edge lists is not ported (``ROADMAP.md`` Queue 1 item
-6).
+the request's own seed.  The graph is the two-level slab graph (the
+exact uncapped radius graph, the serving semantics; the kernels K1 and
+K2) or, with ``device_graph_slab: false``, capped radius edge lists in
+the SRC-sentinel layout, which the model reduces on the generic segment
+path (the JAX package's choice on every backend but a TPU).
 """
 
 from typing import NamedTuple, Optional
@@ -24,12 +25,6 @@ from pointgnn_tpu_torch import configs as cfg_mod
 from pointgnn_tpu_torch.data.labels import LABEL_METHODS
 from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import device_labels as dl
-
-EDGE_LIST_TRAINING = (
-    "training on device-built edge lists (device_graph_slab: false) is "
-    "not ported to the PyTorch port (ROADMAP.md Queue 1 item 6)"
-)
-
 
 class DeviceFrame(NamedTuple):
     """One frame (or a stack of frames, leading axis), ready for the
@@ -174,22 +169,27 @@ def coerce_device_spec(obj):
 
 
 def resolve_device_setup(config, spec=None, slab="auto"):
-    """``(dspec, model_extra)`` for device-graph training: the spec (the
-    family's training spec unless given, as a spec or its JSON round
-    trip) with both slab levels on, and the model's slab wiring and
-    compute dtype (the family's setting, None = f32, unless the config's
-    model_kwargs name one).  ``slab`` is the train_config's
-    ``device_graph_slab``: "auto" and True train on the slab graph;
-    False raises, since edge-list training is not ported."""
-    if slab != "auto" and not slab:
-        raise NotImplementedError(EDGE_LIST_TRAINING)
+    """``(dspec, model_extra)`` for device-graph training and evaluation:
+    the spec (the family's training spec unless given, as a spec or its
+    JSON round trip) with both slab flags set to the resolved ``slab``,
+    and the model's edge sentinel, slab wiring and compute dtype (the
+    family's setting, None = f32, unless the config's model_kwargs name
+    one).  ``slab`` is the train_config's ``device_graph_slab``: True
+    trains on the slab graph (K1, K2), False on capped edge lists
+    through the segment path.  "auto" means the slab graph, the path
+    with the kernels; the JAX package resolves it to edge lists on every
+    backend but a TPU, and freezes the choice into the saved
+    train_config, which is how its checkpoints reach here."""
+    slab = True if slab == "auto" else bool(slab)
     tpu = cfg_mod.tpu_settings(config["label_method"])
     dspec = coerce_device_spec(spec) or device_spec_for_training(config, tpu)
-    dspec = dspec._replace(slab_level1=True, slab_level0=True)
-    model_extra = {
-        "slab_level1": db.slab_kernel_wiring(dspec.level1),
-        "slab_level0": db.slab_kernel_wiring(dspec.level0),
-    }
+    # the flags follow the resolved choice both ways: a frozen spec may
+    # arrive with them set, and a slab graph has no edge list to reduce
+    dspec = dspec._replace(slab_level1=slab, slab_level0=slab)
+    model_extra = {"edge_sentinel": "src"}
+    if slab:
+        model_extra["slab_level1"] = db.slab_kernel_wiring(dspec.level1)
+        model_extra["slab_level0"] = db.slab_kernel_wiring(dspec.level0)
     cd = tpu.get("compute_dtype")
     if cd and "compute_dtype" not in config.get("model_kwargs", {}):
         model_extra["compute_dtype"] = cd

@@ -9,9 +9,10 @@ the JAX evaluator: "auto" follows the checkpoint's frozen
 ``train_config``.
 
 On device-built graphs each frame's graph build, label assignment, box
-encoding, forward (the slab kernel K1 at both levels), loss and metric
-counts run on the card; the graph is not randomized, as the reference's
-eval fetch is not.  On host-built graphs the fetch builds the graph,
+encoding, forward (the slab kernel K1 at both levels, or the segment
+path over capped edge lists when the checkpoint trained on them,
+``device_graph_slab: false``), loss and metric counts run on the card;
+the graph is not randomized, as the reference's eval fetch is not.  On host-built graphs the fetch builds the graph,
 labels and encoded boxes; the fetch thread grows ``capacity`` to fit the
 frame (never truncating; it prints each growth), pads it and copies it
 to the card, which runs the forward on the segment path, the loss and

@@ -3,22 +3,28 @@
 summaries, checkpoint and resume.
 
 Each step trains on a batch of ``batch_size`` frames, on device-built
-slab graphs (``"device_graph"`` true, or unset for the NONE-normalization
+graphs (``"device_graph"`` true, or unset for the NONE-normalization
 configs: graph build, label assignment and box encoding inside the step;
 per-step graph randomization, each frame's loss combined with the
 reference's graph-union endpoint weighting) or on host-built graphs
-(``"device_graph": false``: the provider's workers build each frame's
-graph, labels and encoded boxes; the prefetch thread unions the step's
-frames into one graph padded to ``capacity`` and copies it to the card;
-the model runs the segment path in 16 checkpointed edge chunks).  The
-epoch bookkeeping is the JAX package's: resume recomputes the epoch from
-the restored step, metrics reset per epoch, and checkpoints (with the
-frozen configs) are written every ``save_every_epoch`` epochs, at
-``max_steps`` and at exit.
+(``"device_graph": false``, and unset for configs with a normalized MLP:
+the provider's workers build each frame's graph, labels and encoded
+boxes; the prefetch thread unions the step's frames into one graph
+padded to ``capacity`` and copies it to the card; the model runs the
+segment path in 16 checkpointed edge chunks, one with batch norms).
+Device-built graphs are slab graphs (``"device_graph_slab"`` true or
+"auto") or capped edge lists (``false``, which the JAX package freezes
+into the train_configs of runs on any backend but a TPU; the segment
+path in 16 chunks).  The resolved routing is frozen into the
+train_config saved beside every checkpoint.  Batch norms' moving
+averages are updated after each optimizer step (decay ``bn_decay``,
+0.999 by default).  The epoch bookkeeping is the JAX package's: resume
+recomputes the epoch from the restored step, metrics reset per epoch,
+and checkpoints (with the frozen configs) are written every
+``save_every_epoch`` epochs, at ``max_steps`` and at exit.
 
-Not ported: training on device-built edge lists and normalized MLPs
-(``ROADMAP.md`` Queue 1 item 6), and data parallelism over several cards
-(item 7); each raises.
+Not ported: data parallelism over several cards (``ROADMAP.md`` Queue 1
+item 7), which raises.
 """
 
 import collections
@@ -36,6 +42,7 @@ from pointgnn_tpu_torch.infer import input_feature_dim
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.losses import loss_config
 from pointgnn_tpu_torch.model.pointgnn import get_model
+from pointgnn_tpu_torch.nn import mlp
 from pointgnn_tpu_torch.parallel import step as step_lib
 from pointgnn_tpu_torch.train import checkpoint as ckpt_lib
 from pointgnn_tpu_torch.train import device_pipeline as dpipe
@@ -46,10 +53,6 @@ from pointgnn_tpu_torch.train.pipeline import DataProvider, FetchSpec
 from pointgnn_tpu_torch.utils import thread_warnings
 from pointgnn_tpu_torch.utils.device import resolve_device
 
-NORMALIZED_MLPS = (
-    "training a config with normalized MLPs (BN, instance norm) is not "
-    "ported to the PyTorch port (ROADMAP.md Queue 1 item 6)"
-)
 DATA_PARALLEL = (
     "data-parallel training over %d devices (NUM_GPU x COPY_PER_GPU) is "
     "not ported to the PyTorch port (ROADMAP.md Queue 1 item 7)"
@@ -59,7 +62,8 @@ DATA_PARALLEL = (
 def _all_norms_none(config: Dict) -> bool:
     """True when every MLP normalization in the layer configs is NONE
     (all seven shipped configs): such configs train on device-built
-    graphs unless the train_config says otherwise."""
+    graphs unless the train_config says otherwise; the others on
+    host-built graphs."""
     for lc in config["model_kwargs"]["layer_configs"]:
         for key, val in lc.get("kwargs", {}).items():
             norm_key = (
@@ -124,18 +128,17 @@ class Trainer:
         self.train_config = train_config
         self.num_frames = num_frames
         enc_len = encodings.get_encoding_len(config["box_encoding_method"])
-        if not _all_norms_none(config):
-            raise NotImplementedError(NORMALIZED_MLPS)
         # an explicit train_config value wins; unset, NONE-normalization
-        # configs route to the device graph
+        # configs route to the device graph, the others to host graphs
         dg = train_config.get("device_graph")
         if dg is None:
-            dg = True
-            print(
-                "device_graph training auto-enabled (NONE-"
-                "normalization config): graph construction + label "
-                "assignment + box encoding run inside the train step"
-            )
+            dg = _all_norms_none(config)
+            if dg:
+                print(
+                    "device_graph training auto-enabled (NONE-"
+                    "normalization config): graph construction + label "
+                    "assignment + box encoding run inside the train step"
+                )
         self.device_graph = bool(dg)
         self.device_spec = None
         graph_builder = None
@@ -207,12 +210,15 @@ class Trainer:
                                else 1),
             with_metrics=True,
             graph_rng_seed=seed if graph_rnd else None,
+            bn_decay=train_config.get("bn_decay", 0.999),
         )
         params = self.model.init(
             seed, input_feature_dim(config["input_features"]), self.device
         )
-        for t in opt_lib.param_leaves(params):
-            t.requires_grad_(True)
+        # the batch norms' moving averages are updated by the step, not
+        # by the optimizer
+        for key, t in mlp.named_leaves(params):
+            t.requires_grad_(key not in mlp.EMA_KEYS)
         self.state = step_lib.init_train_state(params, self.optimizer)
         self.metrics = metrics_lib.StreamingMetrics(
             config["num_classes"], enc_len

@@ -600,3 +600,163 @@ def test_host_graph_frame_on_the_card_equals_cpu(cuda):
                                              slab.slab_edge_max_backward,
                                              edge_tail.edge_tail_max,
                                              edge_tail.fused_edge_max)]
+
+
+def _launch_counts():
+    return [fn.launches for fn in (slab.slab_edge_max,
+                                   slab.slab_edge_max_backward,
+                                   edge_tail.edge_tail_max,
+                                   edge_tail.fused_edge_max)]
+
+
+def _grads_on(model, params, loss_of):
+    """Loss and every parameter gradient (leaves that take one) of
+    ``loss_of(params)``, on the CPU."""
+    from pointgnn_tpu_torch.nn import mlp
+
+    for key, t in mlp.named_leaves(params):
+        t.requires_grad_(key not in mlp.EMA_KEYS)
+    total = loss_of(params)
+    total.backward()
+    return float(total.detach()), [
+        torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
+        for key, t in mlp.named_leaves(params) if key not in mlp.EMA_KEYS]
+
+
+def _assert_grads_close(card, cpu, loss_tol=1e-5, grad_tol=1e-3):
+    assert np.isfinite(card[0])
+    np.testing.assert_allclose(card[0], cpu[0], rtol=loss_tol)
+    for g, w in zip(card[1], cpu[1]):
+        assert torch.isfinite(g).all()
+        scale = 1.0 + w.abs().max().item()
+        assert (g - w).abs().max().item() <= grad_tol * scale
+
+
+def test_edge_list_train_step_on_the_card_equals_cpu(cuda):
+    """One two-frame union step on device-built edge lists
+    (``device_graph_slab: false``, car T=1 at full width, the segment
+    path in 16 chunks) on the card and on the CPU with the same graph
+    randomization: the loss at rtol 1e-5, every gradient within 1e-3 of
+    ``(1 + max|g|)``; no kernel launches."""
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("car_auto_T1_train")
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS, runtime=False)
+    dspec, extra = dpipe.resolve_device_setup(cfg, spec, slab=False)
+    model = PointGNN(num_classes=4, box_encoding_len=7, mode="train",
+                     **extra, **cfg["model_kwargs"])
+    assert model.edge_chunks == 16 and model.slab_level1 is None
+    frames = []
+    for seed in (0, 1):
+        pts, labels = synthetic_lidar_frame(seed=seed, n_beams=32,
+                                            points_per_beam=160)
+        frames.append(dpipe.DeviceFrame(
+            db.pack_points(pts.xyz, pts.attr[:, :1], NUM_POINTS),
+            dl.pack_frame_labels(labels, LABEL_MAP_CAR, 4)))
+    stacked = dpipe.stack_frames(frames)
+    init = params_to_numpy(model.init(seed=0, input_dim=1, device="cpu"))
+    runs = []
+    before = _launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        sums = step_lib.make_union_sums_fn(
+            model, loss_config(cfg),
+            dpipe.make_graph_builder(dspec, model.output_graph_level, cfg),
+            2)
+        gen = torch.Generator().manual_seed(5)
+        rnds = [tuple(x.to(dev) for x in db.draw_randomization(
+            NUM_POINTS, gen)) for _ in range(2)]
+        batch = dpipe.frames_to_device(stacked, dev)
+
+        def loss_of(params):
+            acc, reg = sums(params, batch, rnds)
+            return (acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+                    + acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+                    + reg)
+
+        runs.append(_grads_on(model, params_from_jax(init, dev), loss_of))
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    _assert_grads_close(*runs)
+
+
+def _to_double(tree):
+    if isinstance(tree, dict):
+        return {k: _to_double(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_double(v) for v in tree]
+    if tree is None or not tree.is_floating_point():
+        return tree
+    return tree.to(torch.float64)
+
+
+def test_bn_train_step_on_the_card_equals_cpu(cuda):
+    """One step of a car T=1 config with every MLP normalized by
+    ``fused_BN_center`` on a host-built graph (unchunked), on the card
+    and on the CPU, each against the CPU's float64 evaluation of the
+    same step: the loss at rtol 1e-5, every gradient within 5e-3 of ``(1
+    + max|g|)`` (batch norm amplifies f32 rounding: the CPU's own f32
+    gradients lie ~2e-3 from float64 here), and the moving averages
+    after the update, card against CPU, within 1e-3 relative."""
+    from pointgnn_tpu_torch.graph import builder, pad
+    from pointgnn_tpu_torch.nn import mlp
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("car_auto_T1_train")
+    for lc in cfg["model_kwargs"]["layer_configs"]:
+        for key in lc["kwargs"]:
+            if key.endswith("normalization_type"):
+                lc["kwargs"][key] = "fused_BN_center"
+    model = PointGNN(num_classes=4, box_encoding_len=7, mode="train",
+                     **cfg["model_kwargs"])
+    assert model._has_bn and model.edge_chunks == 1
+    pts, _ = synthetic_lidar_frame(seed=2, n_beams=32, points_per_beam=160)
+    pts = pts.mask(np.arange(NUM_POINTS))
+    vcl, kil, el = builder.gen_multi_level_local_graph_v3(
+        pts.xyz, **cfg["graph_gen_kwargs"], rng=np.random.default_rng(0))
+    k = len(vcl[-1])
+    rng = np.random.default_rng(1)
+    frame = pad.FrameData(
+        pts.attr[:, :1].astype(np.float32), vcl, kil, el,
+        rng.integers(0, 4, (k, 1)).astype(np.int32),
+        rng.normal(size=(k, 1, 7)).astype(np.float32),
+        (rng.random((k, 1)) < 0.3).astype(np.float32))
+    graph = pad.batch_and_pad(
+        [frame], pad.GraphCapacity((NUM_POINTS, 4096, 4096),
+                                   (65536, 262144)))
+    init = params_to_numpy(model.init(seed=0, input_dim=1, device="cpu"))
+    loss_fn = step_lib.make_loss_fn(model, loss_config(cfg))
+    runs, emas = [], []
+    for dev, double in ((cuda, False), (torch.device("cpu"), False),
+                        (torch.device("cpu"), True)):
+        params = params_from_jax(init, dev)
+        g = pad.to_device(graph, dev)
+        if double:
+            params = _to_double(params)
+            g = g._replace(**{k: _to_double(getattr(g, k)) for k in (
+                "features", "vertex_xyz", "vertex_mask", "encoded_boxes",
+                "valid_boxes")})
+        stats = {}
+
+        def loss_of(p):
+            total, aux = loss_fn(p, g)
+            stats.update(aux["bn_stats"])
+            return total
+
+        runs.append(_grads_on(model, params, loss_of))
+        mlp.update_bn_ema(params, stats, 0.5)
+        emas.append([t.cpu() for key, t in mlp.named_leaves(params)
+                     if key in mlp.EMA_KEYS])
+    ref = runs[2]
+    for loss, grads in runs[:2]:
+        assert np.isfinite(loss)
+        np.testing.assert_allclose(loss, ref[0], rtol=1e-5)
+        for g, w in zip(grads, ref[1]):
+            assert torch.isfinite(g).all()
+            scale = 1.0 + w.abs().max().item()
+            assert (g.double() - w).abs().max().item() <= 5e-3 * scale
+    assert len(emas[0]) > 0
+    for a, b in zip(emas[0], emas[1]):
+        assert (a - b).abs().max().item() <= 1e-3 * (1 + b.abs().max().item())

@@ -122,6 +122,10 @@ def test_pointgnn_apply_matches_jax(compute_dtype):
 
 
 def test_classaware_decode_matches_jax():
+    """(Named when the class-aware decoder was the only one ported.)  The
+    class-aware device decoder against JAX's; the voxelnet decoder,
+    which raised here then, against JAX's too (the six codecs are held
+    against JAX in ``test_torch_codecs.py``)."""
     rng = np.random.default_rng(0)
     n = 64
     cls = rng.integers(0, 4, n).astype(np.int32)
@@ -136,8 +140,11 @@ def test_classaware_decode_matches_jax():
     )(torch.from_numpy(cls), torch.from_numpy(xyz), torch.from_numpy(enc))
     # exp() of two libm implementations: a few f32 ulps
     np.testing.assert_allclose(tdec.numpy(), jdec, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        encodings.get_decode("voxelnet_box_encoding", label_map)
+    jvox = np.asarray(jax_encodings.get_decode_jax(
+        "voxelnet_box_encoding", label_map)(cls, xyz, enc))
+    tvox = encodings.get_decode("voxelnet_box_encoding", label_map)(
+        torch.from_numpy(cls), torch.from_numpy(xyz), torch.from_numpy(enc))
+    np.testing.assert_allclose(tvox.numpy(), jvox, rtol=1e-6, atol=1e-6)
 
 
 def test_non_slab_layer_raises():

@@ -138,20 +138,37 @@ def test_segment_layers_match_jax(layer, layout):
 
 
 def test_segment_layers_raise_on_normalized_mlps():
-    """BN and instance norm stay unported: the segment branch raises,
-    naming the ROADMAP item."""
+    """(Named when normalized MLPs raised here.)  The GNN layer's
+    concatenating edge branch with a batch norm (batch statistics,
+    padded edges masked out) and with instance norm (over every row of
+    the block, padding included, as in JAX) on a host graph, each MLP
+    normalized, against the JAX layer."""
     cfg = _small_config(T=1)
     graph = _host_graph(cfg, _frame(0), 1, jpad.GraphCapacity(**SMALL_CAP))
-    params = params_from_jax(jax.device_get(
-        jlayers.GraphNetAutoCenter().init(
-            jax.random.PRNGKey(0), 24, edge_MLP_depth_list=[24],
-            update_MLP_depth_list=[24])), "cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tlayers.GraphNetAutoCenter().apply(
-            params, torch.zeros(256, 24), _t(graph.vertex_xyz[1]),
-            edges_src=_t(graph.edges_src[1]),
+    n = graph.vertex_xyz[1].shape[0]
+    feats = np.random.default_rng(3).normal(size=(n, 24)).astype(np.float32)
+    for norm in ("fused_BN_center", "IN"):
+        lkw = dict(edge_MLP_depth_list=[24, 24], update_MLP_depth_list=[24],
+                   edge_MLP_normalization_type=norm,
+                   update_MLP_normalization_type=norm,
+                   auto_offset=True, auto_offset_MLP_depth_list=[16, 3],
+                   auto_offset_MLP_normalization_type=norm)
+        params = jax.device_get(jlayers.GraphNetAutoCenter().init(
+            jax.random.PRNGKey(0), 24, **lkw))
+        with jax.default_matmul_precision("highest"):
+            want = np.asarray(jlayers.GraphNetAutoCenter().apply(
+                params, jnp.asarray(feats), jnp.asarray(graph.vertex_xyz[1]),
+                jnp.asarray(graph.edges_src[1]),
+                jnp.asarray(graph.edges_dst[1]),
+                vertex_mask=jnp.asarray(graph.vertex_mask[1]), **lkw))
+        got = tlayers.GraphNetAutoCenter().apply(
+            params_from_jax(params, "cpu"), _t(feats),
+            _t(graph.vertex_xyz[1]), edges_src=_t(graph.edges_src[1]),
             edges_dst=_t(graph.edges_dst[1]),
-            edge_MLP_normalization_type="fused_BN_center")
+            vertex_mask=_t(graph.vertex_mask[1]), **lkw)
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4,
+                                   err_msg=norm)
 
 
 @pytest.mark.parametrize("chunks", [1, 4])

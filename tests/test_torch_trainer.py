@@ -178,21 +178,28 @@ def test_data_provider_matches_jax(tree, monkeypatch, num_workers, every_n,
 
 
 def test_host_graph_paths_raise(tree):
-    """(Named when the host-graph fetch raised.)  The host-graph fetch is
-    ported (a FetchSpec without device_spec builds it;
-    ``tests/test_torch_train_host.py`` holds it against JAX); device-built
-    edge lists for training still raise."""
+    """(Named when the host-graph fetch and edge-list training raised.)
+    The host-graph fetch is ported (a FetchSpec without device_spec
+    builds it; ``tests/test_torch_train_host.py`` holds it against JAX);
+    ``slab=False`` resolves to device-built edge lists (both slab flags
+    cleared, the SRC sentinel, no slab wiring), "auto" to the slab
+    graph."""
     root, _ = tree
     cfg = configs.get_config("car_auto_T1_train")
     tspec, _ = _fetch_specs(root, "car_auto_T1_train", cfg, {})
     frame = tpipe.build_fetch(tspec._replace(device_spec=None))(0, 1)
     assert type(frame).__name__ == "FrameData"
     assert len(frame.edges_list) == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tdpipe.resolve_device_setup(cfg, slab=False)
+    edges, extra = tdpipe.resolve_device_setup(cfg, slab=False)
+    assert not (edges.slab_level0 or edges.slab_level1)
+    assert extra == {"edge_sentinel": "src"}
     dspec, _ = tdpipe.resolve_device_setup(cfg, slab=True)
     assert dspec.slab_level0 and dspec.slab_level1
     assert tdpipe.resolve_device_setup(cfg)[0] == dspec
+    # a spec frozen with the slab flags set trains on edge lists when the
+    # frozen routing says so
+    assert tdpipe.resolve_device_setup(cfg, spec=dspec, slab=False)[0] == \
+        edges
 
 
 # ---------------------------------------------------------------------------
@@ -337,20 +344,26 @@ def test_trainer_checkpoint_resume_and_epochs(tree, tmp_path, capsys,
 
 
 def test_trainer_refuses_what_is_not_ported(tree, tmp_path):
-    """Edge-list training (``device_graph_slab: false``) and normalized
-    MLPs raise naming ROADMAP item 6 (host-graph training, ``device_graph:
-    false``, is ported), more than one device item 7."""
+    """(Named when edge-list training and normalized MLPs raised here,
+    naming ROADMAP item 6.)  ``device_graph_slab: false`` builds an
+    edge-list trainer and freezes that routing; a BN config routes to
+    host graphs when ``device_graph`` is unset and trains on them;
+    more than one device still raises, naming item 7."""
     root, _ = tree
     cfg, tc, fspec = _trainer_setup(root, tmp_path)
     bn = json.loads(json.dumps(cfg))
     bn["model_kwargs"]["layer_configs"][1]["kwargs"][
         "edge_MLP_normalization_type"] = "fused_BN_center"
-    for bad_cfg, bad, item in ((cfg, {"device_graph_slab": False},
-                                "item 6"),
-                               (bn, {"device_graph": False}, "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(bad_cfg, dict(tc, **bad), fspec, NUM_FRAMES,
-                    device="cpu")
+    edges = Trainer(cfg, dict(tc, device_graph_slab=False), fspec,
+                    NUM_FRAMES, device="cpu")
+    edges.close()
+    assert edges.device_graph and edges.model.edge_sentinel == "src"
+    assert edges.model.slab_level0 is None and edges.model.edge_chunks == 16
+    assert edges.train_config["device_graph_slab"] is False
+    host_tc = {k: v for k, v in tc.items() if k != "device_graph"}
+    bn_trainer = Trainer(bn, host_tc, fspec, NUM_FRAMES, device="cpu")
+    bn_trainer.close()
+    assert not bn_trainer.device_graph and bn_trainer.model.edge_chunks == 1
     with pytest.raises(NotImplementedError, match="item 7"):
         Trainer(cfg, tc, fspec, NUM_FRAMES, n_devices=2, device="cpu")
     # NUM_GPU 2 on a machine without a second card trains on one

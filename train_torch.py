@@ -9,10 +9,13 @@ The counterpart of ``train.py``, with the same arguments plus
 
 Config names from the built-in registry (e.g. ``car_auto_T3_train``)
 are accepted in place of file paths.  The run trains on device-built
-slab graphs (``"device_graph"`` true or unset) or on host-built graphs
-(``"device_graph": false``: the provider's workers build each frame's
-graph, the step's frames are unioned and padded to the family's
-``frame_capacity``), checkpoints to the train_config's ``train_dir`` in
+graphs (``"device_graph"`` true, or unset for a config without
+normalized MLPs): slab graphs, or capped edge lists with
+``"device_graph_slab": false``; or on host-built graphs
+(``"device_graph": false``, and unset for a config with a normalized
+MLP: the provider's workers build each frame's graph, the step's frames
+are unioned and padded to the family's ``frame_capacity``), checkpoints
+to the train_config's ``train_dir`` in
 the port's format (``run_torch.py`` serves it) and resumes from the
 latest checkpoint there.  The last line of the output is JSON: the launch count
 of each hand-written kernel in the run, the steps run and, per step, the
