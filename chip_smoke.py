@@ -159,7 +159,22 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     (slab and tail resolve off); instance norm, each of the six box
     codecs and the separated predictor: one forward and box decode on a
     host graph card against CPU (``HOST_TOL``);
-16. prints one ``{"kernels": [...]}`` line and, last, the
+16. data parallelism (``parallel/mesh.py``, one process per rank): (a)
+    two ranks train car_auto_T3 at full width and depth through
+    ``Trainer`` on a 4-frame synthetic tree, batch 4 (2 frames a rank,
+    no augmentation, no graph randomization), gloo on this card twice
+    (NCCL over two cards when there are two): 1 warm-up and 3 timed
+    steps, 8 K1 and 8 K2 launches per rank per step (counted in the
+    ranks), the median ms a step and the peak device memory of each
+    rank, the parameters of the two ranks equal to the bit, and the
+    first step against one process training the union of the same 4
+    frames (the update within ``DP_UNION_TOL`` of (lr + max|update|),
+    the loss within 1e-5); (b) NCCL at world size 1 bitwise the step
+    without a mesh (car_auto_T3, 2 frames); (c) ``stream`` sharded over
+    the two ranks' devices against ``stream`` on 8 synthetic frames
+    (``DP_STREAM_TOL``, 4 K1 launches a frame); (d)
+    ``parallel.dryrun.dryrun_multichip(2)`` on those devices;
+17. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -168,6 +183,7 @@ line.  It exits non-zero at once when no CUDA device is visible or the
 goes to ``chiprun_out/chip_smoke_report.json``.
 """
 
+import copy
 import json
 import os
 import re
@@ -2027,7 +2043,8 @@ def _check_train_run(last, stdout, tc, steps, first_step=0,
 
     from pointgnn_tpu_torch.train import checkpoint as ckpt
 
-    per_step = launches_per_frame * tc["batch_size"]
+    # every rank launches for its batch_size / ranks frames
+    per_step = launches_per_frame * tc["batch_size"] // last["ranks"]
     check(last["steps"] == steps, "ran %d steps, want %d"
           % (last["steps"], steps))
     check(last["launches"] == {"slab_edge_max": per_step * steps,
@@ -3377,6 +3394,263 @@ def edge_training_phase(report, device):
     return out
 
 
+DP_WORK = os.path.join(HERE, "build", "chip_smoke_dp")
+DP_FRAMES = 4  # one step's batch: 2 frames per rank
+DP_STEPS = 3  # timed, after one warm-up step
+DP_UNION_TOL = 1e-4  # the union step's tolerance (tests/test_torch_dp_*)
+DP_STREAM_FRAMES = 8
+DP_STREAM_TOL = dict(scores=(1e-4, 1e-5), boxes=(1e-4, 1e-4))
+DP_STREAM_SPEC = None  # the serving pipeline's default device spec
+
+
+def _dp_devices():
+    """Two ranks: one per card on two cards (NCCL), else this card
+    twice (gloo)."""
+    import torch
+
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def _update_err(p0, a, b, lr):
+    """The largest gap between two parameter updates from ``p0``, per
+    leaf in units of (lr + the leaf's largest update in ``b``): the
+    gradient gap in units of (1 + max|g|)."""
+    from pointgnn_tpu_torch.params import params_from_jax
+    from pointgnn_tpu_torch.train import optimizers
+
+    worst = 0.0
+    for t0, ta, tb in zip(*(optimizers.param_leaves(params_from_jax(
+            p, "cpu")) for p in (p0, a, b))):
+        ua, ub = ta - t0, tb - t0
+        worst = max(worst, float((ua - ub).abs().max()
+                                 / (lr + ub.abs().max())))
+    return worst
+
+
+def _max_param_diff(a, b):
+    from pointgnn_tpu_torch.params import params_from_jax
+    from pointgnn_tpu_torch.train import optimizers
+
+    return max(float((x - y).abs().max()) for x, y in zip(
+        *(optimizers.param_leaves(params_from_jax(p, "cpu"))
+          for p in (a, b))))
+
+
+def _ws1_case(path):
+    """Phase 16(b)'s case: car_auto_T3 at full width and depth, two
+    synthetic frames at the family's training spec, one sgd step without
+    graph randomization."""
+    from pointgnn_tpu_torch.data.labels import LABEL_METHODS
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.graph import device_labels as dl
+    from pointgnn_tpu_torch.infer import input_feature_dim
+    from pointgnn_tpu_torch.infer import select_input_features
+    from pointgnn_tpu_torch.model.losses import loss_config
+    from pointgnn_tpu_torch.model.pointgnn import PointGNN
+    from pointgnn_tpu_torch.params import params_to_numpy
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.train import device_pipeline as dpipe
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    cfg, tc = train_cli_configs("car_auto_T3_train")
+    spec = tc.get("device_graph_spec")
+    dspec, _ = dpipe.resolve_device_setup(cfg, spec)
+    label_map, num_classes = LABEL_METHODS[cfg["label_method"]]
+    frames = []
+    for seed in (0, 1):
+        points, labels = synthetic_lidar_frame(seed=seed)
+        packed = db.pack_points(points.xyz, select_input_features(
+            points.attr, cfg["input_features"]), dspec.num_points)
+        frames.append(dpipe.DeviceFrame(packed, dl.pack_frame_labels(
+            labels, label_map, num_classes)))
+    batch = dpipe.stack_frames(frames)
+    model = dict(num_classes=num_classes, box_encoding_len=7, mode="train",
+                 **cfg["model_kwargs"])
+    params = PointGNN(**model).init(
+        0, input_feature_dim(cfg["input_features"]), "cpu")
+    ckpt.save_tree(path, dict(
+        model=model, loss=loss_config(cfg), steps=1,
+        optimizer=dict(tc, initial_lr=CAR_CLI_LR),
+        params=params_to_numpy(params),
+        graph_builder=dict(config=cfg, spec=spec, slab="auto"),
+        step=dict(frames_per_device=2, with_metrics=True),
+        inputs=[(batch.packed_points, tuple(batch.labels))]))
+
+
+def data_parallel_phase(report, device):
+    """Phase 16: data-parallel training and serving.  (a) two ranks
+    train car_auto_T3 through ``Trainer`` (gloo on this card twice, NCCL
+    over two cards when there are two) at batch 4, 2 frames a rank;
+    (b) NCCL at world size 1 against the step without a mesh; (c)
+    ``stream`` sharded over this card twice against ``stream``; (d)
+    ``dryrun_multichip(2)``."""
+    import numpy as np
+    import torch
+
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.parallel import dryrun, mesh
+    from pointgnn_tpu_torch.params import params_to_numpy
+    from pointgnn_tpu_torch.train.pipeline import DatasetSpec, FetchSpec
+    from pointgnn_tpu_torch.train.trainer import Trainer
+    from pointgnn_tpu_torch.utils import synthetic_kitti
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    card = card_line()
+    work = DP_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "kitti")
+    synthetic_kitti.main(tree, DP_FRAMES, n_ground=TRAIN_CLI_N_GROUND)
+    devices = _dp_devices()
+    backend = "nccl" if devices[0] != devices[1] else "gloo"
+
+    # (a) no augmentation and no graph randomization: both ranks and the
+    # one-process step below see the same four graphs
+    cfg, tc = train_cli_configs("car_auto_T3_train")
+    tc.update(batch_size=DP_FRAMES, NUM_GPU=2, num_load_dataset_workers=0,
+              data_aug_configs=[], device_graph_rnd3d=False,
+              initial_lr=CAR_CLI_LR, train_dir=os.path.join(work, "dp"))
+    fspec = FetchSpec(DatasetSpec.from_kitti_root(
+        tree, os.path.join(tree, "3DOP_splits/train.txt"),
+        cfg["num_classes"]), cfg, tc)
+    batch = list(range(DP_FRAMES))
+    job = dict(config=cfg, train_config=tc, fetch_spec=fspec,
+               num_frames=DP_FRAMES, batches=[batch] * (1 + DP_STEPS),
+               snapshots=(1,))
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in mesh.launch(dryrun.train_jobs, 2, [job],
+                                       devices=devices, timeout=600,
+                                       join_timeout=900)]
+    launch_s = time.perf_counter() - t0
+    per_step = 4 * DP_FRAMES // 2  # (1 level-0 + 3 level-1) per frame
+    for r, res in enumerate(ranks):
+        check(all(l == [per_step, per_step] for l in res["launches"]),
+              "rank %d launched K1/K2 %s a step, want %d of each"
+              % (r, res["launches"], per_step))
+        check(all(np.isfinite(res["total_loss"])),
+              "rank %d losses %s" % (r, res["total_loss"]))
+    rank_diff = _max_param_diff(ranks[0]["params"], ranks[1]["params"])
+    check(rank_diff == 0.0, "the ranks' parameters differ by %g" % rank_diff)
+    one_tc = dict(tc, NUM_GPU=1, train_dir=os.path.join(work, "one"))
+    one = Trainer(cfg, one_tc, fspec._replace(train_config=one_tc),
+                  num_frames=DP_FRAMES, device=device)
+    try:
+        p0 = copy.deepcopy(params_to_numpy(one.state.params))
+        aux = one.train_batch(batch)
+        p1 = params_to_numpy(one.state.params)
+    finally:
+        one.close()
+    union_err = _update_err(p0, ranks[0]["snapshots"][1], p1, CAR_CLI_LR)
+    loss_err = abs(ranks[0]["total_loss"][0] - float(aux["total_loss"])) / \
+        abs(float(aux["total_loss"]))
+    check(union_err <= DP_UNION_TOL and loss_err <= 1e-5,
+          "two ranks vs one process on the union: update gap %.3g (tol "
+          "%g), loss rel err %.3g (tol 1e-5)" % (union_err, DP_UNION_TOL,
+                                                loss_err))
+    peak = [r["peak_bytes"] for r in ranks]
+    check(all(peak), "peak device memory per rank %s" % peak)
+    step_ms = [statistics.median(r["step_ms"][1:]) for r in ranks]
+    timed = [[sum(l[i] for l in r["launches"][1:]) for i in (0, 1)]
+             for r in ranks]
+    report["data_parallel"] = dict(
+        devices=devices, backend=backend, launch_s=launch_s,
+        step_ms=[r["step_ms"] for r in ranks], median_step_ms=step_ms,
+        launches_per_step=per_step, timed_launches=timed,
+        peak_gib=[(p or 0) / 2 ** 30 for p in peak],
+        losses=[r["total_loss"] for r in ranks], rank_param_diff=rank_diff,
+        union_update_err=union_err, union_loss_rel_err=loss_err)
+    print("phase 16: %d ranks (%s on %s) trained car_auto_T3 at batch %d "
+          "(%d frames a rank), 1 + %d steps in %.1f s: median ms per step "
+          "%s, K1/K2 launches per rank per step %s, peak GiB per rank %s, "
+          "losses %s; max |param difference| between ranks %g; vs one "
+          "process on the union: update gap %.3g of (lr + max|update|) "
+          "(tol %g), loss rel err %.3g [%s]"
+          % (len(ranks), backend, ",".join(devices), DP_FRAMES,
+             DP_FRAMES // 2, DP_STEPS, launch_s,
+             [round(v, 2) for v in step_ms],
+             [r["launches"][-1] for r in ranks],
+             [round(v, 2) for v in report["data_parallel"]["peak_gib"]],
+             [[round(v, 5) for v in r["total_loss"]] for r in ranks],
+             rank_diff, union_err, DP_UNION_TOL, loss_err, card),
+          flush=True)
+
+    # (b) NCCL at world size 1, against the step without a mesh
+    path = os.path.join(work, "ws1.npz")
+    _ws1_case(path)
+    # one card: NCCL
+    ws1 = mesh.launch(dryrun.run_cases, 1, [path], devices=devices[:1],
+                      timeout=600, join_timeout=600)[0][0]
+    plain = [dryrun.run_cases(None, [path], device=device)[0]
+             for _ in range(2)]
+    repeat_diff = _max_param_diff(plain[0]["params"], plain[1]["params"])
+    ws1_diff = _max_param_diff(ws1["params"], plain[0]["params"])
+    loss_same = (ws1["aux"][0]["total_loss"].tobytes()
+                 == plain[0]["aux"][0]["total_loss"].tobytes())
+    report["data_parallel"]["nccl_ws1"] = dict(
+        param_diff=ws1_diff, repeat_param_diff=repeat_diff,
+        loss_bitwise=loss_same)
+    print("phase 16: NCCL world size 1 vs no mesh (car_auto_T3, 2 frames): "
+          "max |param difference| %g, total loss bitwise %s; two runs "
+          "without a mesh differ by %g" % (ws1_diff, loss_same, repeat_diff),
+          flush=True)
+    check(ws1_diff == 0.0 and loss_same,
+          "NCCL at world size 1 differs from the step without a mesh by %g"
+          % ws1_diff)
+
+    # (c) stream sharded over the card twice
+    frames = [synthetic_lidar_frame(seed=s)[0]
+              for s in range(DP_STREAM_FRAMES)]
+    pipe = InferencePipeline(cfg, on_device_graph=True, device=device,
+                             device_spec=DP_STREAM_SPEC, seed=0)
+    t0 = time.perf_counter()
+    want = list(pipe.stream(iter(frames), batch=4))
+    plain_ms = 1e3 * (time.perf_counter() - t0) / len(frames)
+    shard = InferencePipeline(cfg, on_device_graph=True, device=device,
+                              device_spec=DP_STREAM_SPEC, seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = list(shard.stream(iter(frames), batch=4, mesh=devices))
+    mesh_ms = 1e3 * (time.perf_counter() - t0) / len(frames)
+    stream_counts = read_counts()
+    stream_k1 = stream_counts["slab_edge_max"]
+    check(stream_k1 == 4 * len(frames),
+          "sharded stream launched K1 %d times, want %d"
+          % (stream_k1, 4 * len(frames)))
+    check(len(got) == len(want) == len(frames), "stream lengths differ")
+    worst = {"scores": 0.0, "boxes": 0.0}
+    for (c1, b1, s1, _), (c2, b2, s2, _) in zip(want, got):
+        check(np.array_equal(c1, c2), "sharded stream classes differ")
+        for key, x, y in (("scores", s2, s1), ("boxes", b2, b1)):
+            rtol, atol = DP_STREAM_TOL[key]
+            if x.size:
+                worst[key] = max(worst[key], float(
+                    (np.abs(x - y) / (atol + rtol * np.abs(y))).max()))
+    check(max(worst.values()) <= 1.0, "sharded stream vs stream: %s of "
+          "the tolerance" % worst)
+    report["data_parallel"]["stream"] = dict(
+        frames=len(frames), ms_per_frame=mesh_ms, plain_ms_per_frame=plain_ms,
+        k1_launches=stream_k1, worst_share_of_tol=worst,
+        detections=int(sum(len(g[0]) for g in got)))
+    print("phase 16: stream over %s, %d frames in batches of 4: %.1f ms a "
+          "frame (unsharded %.1f), K1 launches %d, %d detections, worst "
+          "gap %s of the tolerance %s" % (
+              ",".join(devices), len(frames), mesh_ms, plain_ms, stream_k1,
+              report["data_parallel"]["stream"]["detections"], worst,
+              DP_STREAM_TOL), flush=True)
+
+    # (d) the dry run, each rank on its own frame
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(2, devices=devices)
+    report["data_parallel"]["dryrun"] = dict(dry, seconds=time.perf_counter()
+                                             - t0)
+    # the timed steps' launches on both ranks, and the sharded stream's
+    return {"training": {"slab_edge_max": sum(t[0] for t in timed),
+                         "slab_edge_max_backward": sum(t[1] for t in timed)},
+            "stream": stream_counts}
+
+
 def main():
     import torch
 
@@ -3444,6 +3718,8 @@ def main():
               for name in kernel_wrappers()}
     # every launch of phase 15's runs (all 0: no kernel on these paths)
     edge_k = edge_training_phase(report, device)["launches"]
+    # phase 16's data-parallel steps (both ranks) and sharded stream
+    dp_k = data_parallel_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -3476,7 +3752,9 @@ def main():
                      + kitti["slab_edge_max"] + cli_k1 + eval_k1
                      + smoke_k1 + host_k["slab_edge_max"]
                      + sl["serve_fast"]["slab_edge_max"]
-                     + edge_k["slab_edge_max"]),
+                     + edge_k["slab_edge_max"]
+                     + dp_k["training"]["slab_edge_max"]
+                     + dp_k["stream"]["slab_edge_max"]),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
@@ -3484,7 +3762,9 @@ def main():
             "eval_cli": eval_k1, "smoke_train_eval": smoke_k1,
             "host_graph": host_k["slab_edge_max"],
             "host_smoke_fast_pass": sl["serve_fast"]["slab_edge_max"],
-            "edge_list_training_and_options": edge_k["slab_edge_max"]},
+            "edge_list_training_and_options": edge_k["slab_edge_max"],
+            "data_parallel_training": dp_k["training"]["slab_edge_max"],
+            "data_parallel_stream": dp_k["stream"]["slab_edge_max"]},
         # phase 2 (car_T3 serving shapes), phase 11 (the CLI's spec) and
         # phase 13 (an eval step, f32, bitwise)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
@@ -3516,13 +3796,16 @@ def main():
         # each counted from 0; eval_torch.py launches none
         "launches": (train_k2 + cli_k2 + smoke_k2
                      + host_k["slab_edge_max_backward"]
-                     + edge_k["slab_edge_max_backward"]),
+                     + edge_k["slab_edge_max_backward"]
+                     + dp_k["training"]["slab_edge_max_backward"]),
         "launches_by_path": {"training": train_k2, "train_cli": cli_k2,
                              "eval_cli": report["eval"]["launches"][
                                  "eval_cli_K2"],
                              "smoke_train_eval": smoke_k2,
                              "host_graph": host_k["slab_edge_max_backward"],
                              "edge_list_training_and_options": edge_k[
+                                 "slab_edge_max_backward"],
+                             "data_parallel_training": dp_k["training"][
                                  "slab_edge_max_backward"]},
         # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
         "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
@@ -3552,6 +3835,7 @@ def main():
                     "l1_serving": edge["l1"]["launches"][name],
                     "kitti_cli": kitti.get(name, 0),
                     "host_graph": host_k[name],
+                    "data_parallel_stream": dp_k["stream"][name],
                     "edge_list_training_and_options": edge_k[name]}
         key = "K3" if name == "edge_tail_max" else "K4"
         lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])

@@ -28,6 +28,7 @@ Stage times go into ``time_dict`` under the JAX pipeline's bucket names.
 
 import collections
 import concurrent.futures
+import contextlib
 import os
 import threading
 import time
@@ -46,6 +47,7 @@ from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import pad
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.pointgnn import get_model
+from pointgnn_tpu_torch.parallel import mesh as mesh_lib
 from pointgnn_tpu_torch.postprocess import iou as iou_lib
 from pointgnn_tpu_torch.postprocess import nms as nms_lib
 from pointgnn_tpu_torch.train import checkpoint as ckpt
@@ -168,6 +170,27 @@ def format_kitti_lines(pred_labels: List[Tuple]) -> str:
         )
         + "\n"
     )
+
+
+def _mesh_devices(mesh) -> List[torch.device]:
+    """The serving devices of ``stream(mesh=...)``."""
+    if isinstance(mesh, mesh_lib.Mesh):
+        return list(mesh.devices)
+    if (isinstance(mesh, (list, tuple)) and mesh
+            and all(isinstance(d, (str, torch.device)) for d in mesh)):
+        return [resolve_device(d) for d in mesh]
+    raise TypeError(
+        "stream(mesh=...) takes a pointgnn_tpu_torch.parallel.mesh.Mesh or "
+        "a list of devices, got %s" % type(mesh).__name__)
+
+
+def _tree_to(tree, device):
+    """A copy of a parameter tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return None if tree is None else tree.to(device, copy=True)
 
 
 class InferencePipeline:
@@ -537,22 +560,28 @@ class InferencePipeline:
         far ahead: ``slab_edge_max`` reads its pair count on the host,
         so ``device_fn`` waits for the card partway through each frame.
 
-        ``batch`` is accepted for the JAX signature and has no effect:
+        ``mesh`` (a :class:`~pointgnn_tpu_torch.parallel.mesh.Mesh`, whose
+        ``devices`` serve, or a list of devices) serves data-parallel, as
+        the JAX pipeline's ``stream(mesh=...)`` does: every device gets
+        its own copy of the params and a thread that copies frames in,
+        runs ``device_fn`` and starts copying outputs back; each serving
+        batch of ``batch`` frames is dealt out as ``batch / len(mesh)``
+        consecutive frames per device (``batch`` must divide), with no
+        communication between devices.  The main thread runs the host
+        NMS in input order.  Without ``mesh``, ``batch`` has no effect:
         the JAX pipeline batches frames to amortize its host-to-TPU put,
         while ``device_fn`` here runs one frame at a time and a packed
         frame's copy to the card is small.
 
         Buckets: ``gen graph`` (stats and packing on the worker, the copy
         to the device), ``gnn inference`` (``device_fn`` and the wait for
-        its outputs), ``nms``.  ``mesh`` (data-parallel serving) is not
-        ported.  Device-built graphs only, as in JAX."""
+        its outputs), ``nms``.  Device-built graphs only, as in JAX."""
         if not self.on_device_graph:
             raise ValueError("stream() needs on_device_graph")
-        if mesh is not None:
-            raise NotImplementedError(
-                "stream(mesh=...): data-parallel serving is not ported"
-            )
-        cuda = self.device.type == "cuda"
+        devices = None if mesh is None else _mesh_devices(mesh)
+        if devices is not None and batch % len(devices):
+            raise ValueError("batch %d must divide over the %d-device mesh"
+                             % (batch, len(devices)))
         it = iter(frames)
 
         def pull():
@@ -567,17 +596,30 @@ class InferencePipeline:
                 return host, stats, time.time() - t0
             return None
 
-        def fetch(outs):
-            """Start copying one frame's outputs to the host."""
-            if not cuda:
-                return outs, None
-            outs = tuple(o.to("cpu", non_blocking=True) for o in outs)
-            done = torch.cuda.Event()
-            done.record()
+        def run(params, host, device):
+            """Copy one frame in, run ``device_fn`` and start copying its
+            outputs to the host."""
+            with torch.cuda.device(device) if device.type == "cuda" \
+                    else contextlib.nullcontext():
+                t0 = time.time()
+                packed = host.to(device)
+                t1 = time.time()
+                self._add_time("gen graph", t1 - t0)
+                outs = self.device_fn(params, packed)
+                done = None
+                if device.type == "cuda":
+                    outs = tuple(o.to("cpu", non_blocking=True)
+                                 for o in outs)
+                    done = torch.cuda.Event()
+                    done.record()
+                self._add_time("gnn inference", time.time() - t1)
             return outs, done
 
         def finish(entry):
-            (outs, done), t0 = entry, time.time()
+            t0 = time.time()
+            if isinstance(entry, concurrent.futures.Future):
+                entry = entry.result()
+            outs, done = entry
             if done is not None:
                 done.synchronize()
             row = tuple(o.numpy() for o in outs)
@@ -590,11 +632,32 @@ class InferencePipeline:
             self._add_time("nms", time.time() - t1)
             return result
 
-        pending = collections.deque()  # frames whose outputs are in flight
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        with contextlib.ExitStack() as stack:
+            pool = stack.enter_context(
+                concurrent.futures.ThreadPoolExecutor(1))
+            if devices is None:
+                lag = 1  # frames whose outputs are in flight
+
+                def submit(i, host):
+                    return run(self.params, host, self.device)
+            else:
+                lag = batch
+                per = batch // len(devices)
+                replicas = [
+                    (_tree_to(self.params, d), d, stack.enter_context(
+                        concurrent.futures.ThreadPoolExecutor(1)))
+                    for d in devices
+                ]
+
+                def submit(i, host):
+                    params, device, worker = replicas[(i % batch) // per]
+                    return worker.submit(run, params, host, device)
+
             pulls = collections.deque(
                 pool.submit(pull) for _ in range(max(1, depth) + 1)
             )
+            pending = collections.deque()
+            count = 0
             while pulls:
                 res = pulls.popleft().result()
                 if res is None:
@@ -602,13 +665,10 @@ class InferencePipeline:
                 pulls.append(pool.submit(pull))
                 host, stats, gen_s = res
                 self._apply_overflow_stats(stats)
-                t0 = time.time()
-                packed = host.to(self.device)
-                t1 = time.time()
-                self._add_time("gen graph", gen_s + t1 - t0)
-                pending.append(fetch(self.device_fn(self.params, packed)))
-                self._add_time("gnn inference", time.time() - t1)
-                while len(pending) > 1:
+                self._add_time("gen graph", gen_s)
+                pending.append(submit(count, host))
+                count += 1
+                while len(pending) > lag:
                     yield finish(pending.popleft())
             while pending:
                 yield finish(pending.popleft())

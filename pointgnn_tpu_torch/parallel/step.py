@@ -17,9 +17,25 @@ The parameters are updated in place (one set of tensors, the leaves of
 model with batch norms also returns each site's statistics from its
 forward (summed over the step's frames), and after the optimizer update
 the step folds them into the moving averages stored in the parameters
-(``mlp.update_bn_ema``, decay ``bn_decay``).  The data-parallel (mesh)
-step, with its endpoint reweighting and its sum of the statistics across
-devices, is not ported yet.
+(``mlp.update_bn_ema``, decay ``bn_decay``).
+
+With a ``mesh`` (:mod:`pointgnn_tpu_torch.parallel.mesh`) the step is
+the JAX step's SPMD body, run by every rank on its own share of the
+frames.  Each collective stands for one of the JAX step's:
+
+- ``unify_copies``: the endpoint counts are summed over the ranks, so
+  each rank's loss terms weigh its endpoints against the whole batch's
+  (host graphs: ``w = n_dev * n_ep / tot_ep``; device graphs: the
+  union sums over ``tot_ep``), as if one device saw every frame;
+- each rank's backward runs on its loss over ``n_dev`` (or on its share
+  of the global union loss), and the gradients are summed over the
+  ranks: the mean gradient, as JAX's transposed ``psum`` gives it;
+- the batch norms' statistics and the streaming-metric counts are
+  summed, the scalar losses are the global ones (``pmean`` where JAX
+  takes it), and ``classwise_loc_loss``, ``num_endpoint`` and
+  ``num_valid_endpoint`` carry a leading device axis.
+
+Every rank ends the step with the same parameters, bit for bit.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -28,6 +44,7 @@ import torch
 
 from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.nn import mlp
+from pointgnn_tpu_torch.parallel import mesh as mesh_lib
 from pointgnn_tpu_torch.train import metrics as metrics_lib
 from pointgnn_tpu_torch.train.optimizers import param_leaves
 
@@ -43,10 +60,11 @@ def init_train_state(params, optimizer) -> TrainState:
                       opt_state=optimizer.init(params))
 
 
-UNIFY_WEIGHTS = (
-    "the data-parallel endpoint reweighting (unify_weights) is not ported "
-    "to the PyTorch port (ROADMAP.md Queue 1 item 7)"
+_SCALAR_KEYS = ("cls_loss", "loc_loss", "reg_loss", "total_loss")
+_PER_DEVICE_KEYS = (
+    "classwise_loc_loss", "num_endpoint", "num_valid_endpoint",
 )
+_METRIC_KEYS = ("confusion", "pr_pos_hist", "pr_neg_hist")
 
 
 def _forward(model, params, graph):
@@ -64,18 +82,21 @@ def make_loss_fn(model, loss_cfg, with_logits: bool = False):
     model's loss terms (``cls_loss``, ``loc_loss``, ``reg_loss``,
     ``classwise_loc_loss``, ``num_endpoint``, ``num_valid_endpoint``),
     ``total_loss``, ``with_logits`` the detached ``logits`` and, for a
-    train-mode model with batch norms, ``bn_stats``.  The JAX function's
-    ``unify_weights`` (data parallelism) raises."""
+    train-mode model with batch norms, ``bn_stats``.  ``unify_weights``
+    ``(w, vw)`` (the data-parallel step's endpoint reweighting) scales
+    ``cls_loss`` by ``w`` and ``loc_loss`` by ``vw``."""
 
     def loss_fn(params, graph, unify_weights=None):
-        if unify_weights is not None:
-            raise NotImplementedError(UNIFY_WEIGHTS)
         logits, boxes, bn_stats = _forward(model, params, graph)
         d = model.loss(
             logits, graph.cls_labels, boxes, graph.encoded_boxes,
             graph.valid_boxes, graph.vertex_mask[model.output_graph_level],
             **loss_cfg,
         )
+        if unify_weights is not None:
+            w, vw = unify_weights
+            d["cls_loss"] = d["cls_loss"] * w
+            d["loc_loss"] = d["loc_loss"] * vw
         d["reg_loss"] = model.reg_loss(params)
         total = d["cls_loss"] + d["loc_loss"] + d["reg_loss"]
         d["total_loss"] = total
@@ -155,12 +176,16 @@ def _add(a, b):
     return a + b
 
 
-def graph_generator(seed: int, step: int, frame: int, device):
+def graph_generator(seed: int, step: int, frame: int, device,
+                    rank: Optional[int] = None):
     """The generator of one frame's graph randomization in one step
     (``device_builder.draw_randomization``): seeded from (seed, step,
     frame), so a resumed run sees the graphs the uninterrupted run would
-    have seen."""
+    have seen.  A data-parallel step folds in the rank (``rank`` given,
+    JAX's ``fold_in(key, axis_index)``), so that the ranks draw apart."""
     mixed = ((seed * 1000003 + step) * 1000003 + frame) % (2 ** 63)
+    if rank is not None:
+        mixed = (mixed * 1000003 + rank + 1) % (2 ** 63)
     return torch.Generator(device=device).manual_seed(mixed)
 
 
@@ -173,6 +198,8 @@ def make_train_step(
     with_metrics: bool = False,
     graph_rng_seed: Optional[int] = None,
     bn_decay: float = 0.999,
+    mesh: Optional[mesh_lib.Mesh] = None,
+    unify_copies: bool = True,
 ):
     """``step(state, batch) -> (state, aux)`` on one device.
 
@@ -181,7 +208,13 @@ def make_train_step(
     graph and ``graph_rng_seed`` randomizes each frame's graph per step.
     Without it, ``batch`` is a padded union graph on the device
     (``frames_per_device`` must be 1: the frames are unioned before the
-    step).  ``bn_decay`` is the batch norms' moving-average decay."""
+    step).  ``bn_decay`` is the batch norms' moving-average decay.
+
+    With ``mesh``, every rank of the group calls the step on its own
+    share of the batch (``frames_per_device`` frames, or their padded
+    union) and the step is data-parallel, as the module docstring says;
+    ``unify_copies`` reweighs the loss terms by the endpoint counts
+    summed over the ranks.  ``mesh=None`` is the single-device step."""
     # f32 training: the dense layers outside the kernels must not drop
     # to TF32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,43 +226,99 @@ def make_train_step(
                 "graphs union the frames in pad.batch_and_pad)"
             )
         return _make_graph_step(model, optimizer, loss_cfg, with_metrics,
-                                bn_decay)
+                                bn_decay, mesh, unify_copies)
     sums_fn = make_union_sums_fn(model, loss_cfg, graph_builder,
                                  frames_per_device, with_metrics)
+    rank = None if mesh is None else mesh.rank
 
     def _rnds(step_no, batch):
         if graph_rng_seed is None:
             return None
         points = batch.packed_points
         return [db.draw_randomization(points.shape[-2], graph_generator(
-            graph_rng_seed, step_no, f, points.device))
+            graph_rng_seed, step_no, f, points.device, rank))
             for f in range(frames_per_device)]
 
     def step(state: TrainState, batch):
         for t in param_leaves(state.params):
             t.grad = None
         acc, reg = sums_fn(state.params, batch, _rnds(state.step, batch))
-        cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
-        loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
-        total = cls + loc + reg
-        total.backward()
+        if mesh is None:
+            cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+            loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+            total = cls + loc + reg
+            total.backward()
+        elif unify_copies:
+            # this rank's share of the global union loss: the summed
+            # gradient is the one-big-batch gradient
+            tot_ep, tot_val = mesh_lib.sum_across(
+                mesh, [acc["n_ep"], acc["n_val"]])
+            cls = acc["cls_w"] / torch.clamp(tot_ep, min=1.0)
+            loc = acc["loc_w"] / torch.clamp(tot_val, min=1.0)
+            (cls + loc + reg / mesh.size).backward()
+        else:
+            cls = acc["cls_w"] / torch.clamp(acc["n_ep"], min=1.0)
+            loc = acc["loc_w"] / torch.clamp(acc["n_val"], min=1.0)
+            ((cls + loc + reg) / mesh.size).backward()
         aux = {
-            "cls_loss": cls, "loc_loss": loc, "reg_loss": reg,
-            "total_loss": total,
             "classwise_loc_loss": acc["classwise"] / frames_per_device,
             "num_endpoint": acc["n_ep"],
             "num_valid_endpoint": acc["n_val"],
         }
+        summed = {"cls_loss": cls, "loc_loss": loc}
         if with_metrics:
-            for k in ("confusion", "pr_pos_hist", "pr_neg_hist"):
-                aux[k] = acc[k]
-        _update(optimizer, state, acc.get("bn_stats"), bn_decay)
+            summed.update({k: acc[k] for k in _METRIC_KEYS})
+        if "bn_stats" in acc:
+            summed["bn_stats"] = acc["bn_stats"]
+        if mesh is not None:
+            summed, gathered = _sync_ranks(mesh, state.params, summed, aux)
+            aux.update(gathered)
+            if not unify_copies:  # pmean
+                for k in ("cls_loss", "loc_loss"):
+                    summed[k] = summed[k] / mesh.size
+            total = summed["cls_loss"] + summed["loc_loss"] + reg
+        bn_stats = summed.pop("bn_stats", None)
+        aux.update(summed, reg_loss=reg, total_loss=total)
+        _update(optimizer, state, bn_stats, bn_decay)
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}
         return TrainState(state.step + 1, state.params,
                           state.opt_state), aux
 
     return step
+
+
+def _sync_ranks(mesh, params, summed, gathered):
+    """The data-parallel step's collectives after its backward: every
+    trainable leaf's gradient and each entry of ``summed`` (tensors, or
+    ``bn_stats`` dicts of statistics) summed over the ranks, one bucket
+    per dtype; the summed gradients replace ``.grad``.  Each entry of
+    ``gathered`` is stacked over a leading device axis.  Returns the
+    summed and the gathered dicts."""
+    leaves = [t for t in param_leaves(params) if t.requires_grad]
+    flat = [t.grad if t.grad is not None else torch.zeros_like(t)
+            for t in leaves]
+    spots = []
+    for key, val in summed.items():
+        if isinstance(val, dict):  # a site path -> (sum, sum_sq, count)
+            for path, stats in val.items():
+                spots.append((key, path, len(stats)))
+                flat.extend(stats)
+        else:
+            spots.append((key, None, 1))
+            flat.append(val)
+    reduced = mesh_lib.sum_across(mesh, flat)
+    for t, g in zip(leaves, reduced):
+        t.grad = g
+    out, pos = {}, len(leaves)
+    for key, path, n in spots:
+        if path is None:
+            out[key] = reduced[pos]
+        else:
+            out.setdefault(key, {})[path] = tuple(reduced[pos:pos + n])
+        pos += n
+    return out, {k: mesh_lib.gather_stack(mesh, v)
+                 for k, v in gathered.items()}
 
 
 def _update(optimizer, state, bn_stats, bn_decay):
@@ -241,22 +330,55 @@ def _update(optimizer, state, bn_stats, bn_decay):
         mlp.update_bn_ema(state.params, bn_stats, bn_decay)
 
 
-def _make_graph_step(model, optimizer, loss_cfg, with_metrics, bn_decay):
+def _endpoint_counts(model, graph):
+    """``(n_ep, n_val)``: the graph's real output vertices and valid
+    boxes, which do not depend on the parameters."""
+    return (torch.sum(graph.vertex_mask[model.output_graph_level]),
+            torch.sum(graph.valid_boxes))
+
+
+def _make_graph_step(model, optimizer, loss_cfg, with_metrics, bn_decay,
+                     mesh=None, unify_copies=True):
     """The step over one padded graph: the loss dict of
-    :func:`make_loss_fn`, its backward and the optimizer update."""
+    :func:`make_loss_fn`, its backward and the optimizer update; with a
+    mesh, the JAX step's ``_spmd_grads``."""
     loss_fn = make_loss_fn(model, loss_cfg, with_logits=with_metrics)
 
     def step(state: TrainState, graph):
         for t in param_leaves(state.params):
             t.grad = None
-        total, aux = loss_fn(state.params, graph)
-        total.backward()
+        weights = None
+        if mesh is not None and unify_copies:
+            n_ep, n_val = _endpoint_counts(model, graph)
+            tot_ep, tot_val = mesh_lib.sum_across(mesh, [n_ep, n_val])
+            zero = torch.zeros((), device=n_ep.device)
+            weights = tuple(
+                torch.where(tot > 0, mesh.size * n / torch.clamp(
+                    tot, min=1.0), zero)
+                for n, tot in ((n_ep, tot_ep), (n_val, tot_val)))
+        total, aux = loss_fn(state.params, graph, weights)
+        if mesh is None:
+            total.backward()
+        else:
+            (total / mesh.size).backward()
         if with_metrics:
             aux.update(metrics_lib.device_updates(
                 aux.pop("logits"), graph.cls_labels,
                 graph.vertex_mask[model.output_graph_level],
                 model.num_classes,
             ))
+        if mesh is not None:
+            summed = {k: aux.pop(k) for k in _SCALAR_KEYS}
+            if with_metrics:
+                summed.update({k: aux.pop(k) for k in _METRIC_KEYS})
+            if "bn_stats" in aux:
+                summed["bn_stats"] = aux.pop("bn_stats")
+            summed, gathered = _sync_ranks(
+                mesh, state.params, summed,
+                {k: aux.pop(k) for k in _PER_DEVICE_KEYS})
+            for k in _SCALAR_KEYS:  # pmean
+                summed[k] = summed[k] / mesh.size
+            aux.update(summed, **gathered)
         _update(optimizer, state, aux.pop("bn_stats", None), bn_decay)
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in aux.items()}

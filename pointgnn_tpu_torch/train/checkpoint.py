@@ -99,13 +99,7 @@ def save_checkpoint(
     train_dir = os.path.abspath(train_dir)
     path = os.path.join(train_dir, "model-%d" % step)
     os.makedirs(path, exist_ok=True)
-    arrays = {}
-    tree = _encode(state, [], arrays)
-    arrays[TREE_KEY] = np.array(json.dumps(tree))
-    tmp = os.path.join(path, STATE_FILE + ".tmp%d" % os.getpid())
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    save_tree(os.path.join(path, STATE_FILE), state)
     if config is not None:
         config_io.save_config(os.path.join(train_dir, "config"), config)
     if train_config is not None:
@@ -156,7 +150,25 @@ def restore_checkpoint(
             "%s holds no %s: it is not a checkpoint of the PyTorch port "
             "(a JAX/orbax checkpoint?); convert it with "
             "convert_jax_checkpoint.py" % (path, STATE_FILE))
+    return load_tree(file, device), step
+
+
+def save_tree(file: str, tree) -> None:
+    """Write a tree (dicts, lists, tuples, arrays, tensors, optimizers,
+    plain scalars) to one ``.npz`` file in the checkpoint format."""
+    arrays = {}
+    record = _encode(tree, [], arrays)
+    arrays[TREE_KEY] = np.array(json.dumps(record))
+    tmp = file + ".tmp%d" % os.getpid()
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, file)
+
+
+def load_tree(file: str, device="cpu"):
+    """The tree :func:`save_tree` wrote, every array a tensor on
+    ``device``."""
     with np.load(file, allow_pickle=False) as data:
         arrays = {k: data[k] for k in data.files}
-    tree = json.loads(arrays.pop(TREE_KEY).item())
-    return _decode(tree, arrays, device), step
+    record = json.loads(arrays.pop(TREE_KEY).item())
+    return _decode(record, arrays, torch.device(device))

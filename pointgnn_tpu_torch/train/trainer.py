@@ -23,8 +23,15 @@ recomputes the epoch from the restored step, metrics reset per epoch,
 and checkpoints (with the frozen configs) are written every
 ``save_every_epoch`` epochs, at ``max_steps`` and at exit.
 
-Not ported: data parallelism over several cards (``ROADMAP.md`` Queue 1
-item 7), which raises.
+Data parallelism runs one process per card
+(:mod:`pointgnn_tpu_torch.parallel.mesh`): the reference's ``NUM_GPU x
+COPY_PER_GPU`` towers become ``min(requested, available)`` ranks, each
+with its own ``Trainer``.  Every rank draws the same shuffle, takes its
+``batch_size / n_devices`` frames of each step (rank ``d`` the slice
+``[d*F:(d+1)*F]``), and runs the data-parallel step
+(:mod:`pointgnn_tpu_torch.parallel.step`).  Rank 0 alone writes
+checkpoints and summaries and prints the epoch log; every rank restores
+the same checkpoint.  ``train_torch.py`` launches the ranks.
 """
 
 import collections
@@ -35,6 +42,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointgnn_tpu_torch import configs as cfg_mod
 from pointgnn_tpu_torch.graph import pad
@@ -42,7 +50,8 @@ from pointgnn_tpu_torch.infer import input_feature_dim
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.losses import loss_config
 from pointgnn_tpu_torch.model.pointgnn import get_model
-from pointgnn_tpu_torch.nn import mlp
+from pointgnn_tpu_torch.nn import mlp, slab
+from pointgnn_tpu_torch.parallel import mesh as mesh_lib
 from pointgnn_tpu_torch.parallel import step as step_lib
 from pointgnn_tpu_torch.train import checkpoint as ckpt_lib
 from pointgnn_tpu_torch.train import device_pipeline as dpipe
@@ -53,10 +62,27 @@ from pointgnn_tpu_torch.train.pipeline import DataProvider, FetchSpec
 from pointgnn_tpu_torch.utils import thread_warnings
 from pointgnn_tpu_torch.utils.device import resolve_device
 
-DATA_PARALLEL = (
-    "data-parallel training over %d devices (NUM_GPU x COPY_PER_GPU) is "
-    "not ported to the PyTorch port (ROADMAP.md Queue 1 item 7)"
+LAUNCH_RANKS = (
+    "data-parallel training over %d devices (NUM_GPU x COPY_PER_GPU) runs "
+    "one process per device: start the ranks with "
+    "pointgnn_tpu_torch.parallel.mesh.launch (train_torch.py does), or "
+    "pass n_devices=1"
 )
+
+
+def num_ranks(train_config: Dict, device) -> int:
+    """How many ranks a run of ``train_config`` on ``device`` takes.
+
+    The reference's NUM_GPU x COPY_PER_GPU towers become min(requested,
+    cards visible) ranks, one per card, on ``cuda``; a named card
+    (``cuda:1``) or the CPU trains in one process."""
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None:
+        return 1
+    requested = train_config.get("NUM_GPU", 1) * train_config.get(
+        "COPY_PER_GPU", 1
+    )
+    return min(requested, torch.cuda.device_count())
 
 
 def _all_norms_none(config: Dict) -> bool:
@@ -122,8 +148,27 @@ class Trainer:
         n_devices: Optional[int] = None,
         seed: int = 0,
         device=None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            if n_devices is None:
+                n_devices = num_ranks(train_config, self.device)
+            if n_devices > 1:
+                if not dist.is_initialized():
+                    raise ValueError(LAUNCH_RANKS % n_devices)
+                mesh = mesh_lib.make_mesh(n_devices)
+        if mesh is not None:
+            self.device = mesh.device
+            n_devices = mesh.size
+        self.mesh = mesh
+        self.n_devices = max(n_devices, 1)
+        self.is_chief = mesh is None or mesh.rank == 0
+        self.batch_size = train_config.get("batch_size", 1)
+        if self.batch_size % self.n_devices:
+            raise ValueError("batch_size %d must divide over %d devices"
+                             % (self.batch_size, self.n_devices))
+        self.frames_per_device = self.batch_size // self.n_devices
         self.config = config
         self.train_config = train_config
         self.num_frames = num_frames
@@ -133,7 +178,7 @@ class Trainer:
         dg = train_config.get("device_graph")
         if dg is None:
             dg = _all_norms_none(config)
-            if dg:
+            if dg and self.is_chief:
                 print(
                     "device_graph training auto-enabled (NONE-"
                     "normalization config): graph construction + label "
@@ -177,19 +222,6 @@ class Trainer:
                 "frame_capacity"]
         self.capacity = capacity
 
-        # the reference's NUM_GPU x COPY_PER_GPU towers become
-        # min(requested, available) cards
-        requested = train_config.get("NUM_GPU", 1) * train_config.get(
-            "COPY_PER_GPU", 1
-        )
-        if n_devices is None:
-            n_devices = min(requested, torch.cuda.device_count())
-        self.n_devices = max(n_devices, 1)
-        if self.n_devices > 1:
-            raise NotImplementedError(DATA_PARALLEL % self.n_devices)
-        self.batch_size = train_config.get("batch_size", 1)
-        self.frames_per_device = self.batch_size
-
         self.optimizer, self.lr_schedule = opt_lib.build_from_train_config(
             train_config
         )
@@ -211,6 +243,8 @@ class Trainer:
             with_metrics=True,
             graph_rng_seed=seed if graph_rnd else None,
             bn_decay=train_config.get("bn_decay", 0.999),
+            mesh=mesh,
+            unify_copies=train_config.get("unify_copies", True),
         )
         params = self.model.init(
             seed, input_feature_dim(config["input_features"]), self.device
@@ -236,7 +270,9 @@ class Trainer:
             num_frames=num_frames,
             preload_list=list(range(num_frames))
             if load_to_mem and num_workers > 0 else (),
-            seed=seed,
+            # each rank augments its frames with draws of its own
+            seed=seed if mesh is None else int(np.random.SeedSequence(
+                [seed, mesh.rank]).generate_state(1)[0]),
         )
         self.train_dir = train_config["train_dir"]
         self._rng = np.random.default_rng(seed)
@@ -263,28 +299,41 @@ class Trainer:
                 dst.copy_(src)
         _load_opt_state(self.state.opt_state, saved["opt_state"])
         self.state = self.state._replace(step=int(saved["step"]))
-        print("Restored checkpoint at step %d from %s" % (
-            step, self.train_dir
-        ))
+        if self.is_chief:
+            print("Restored checkpoint at step %d from %s" % (
+                step, self.train_dir
+            ))
         return step
 
-    def save(self):
-        ckpt_lib.save_checkpoint(
-            self.train_dir,
-            self.global_step,
-            dict(self.state._asdict()),
-            config=self.config,
-            train_config=self.train_config,
-        )
+    def save(self) -> Optional[str]:
+        """Checkpoint the state (rank 0 alone; the other ranks wait for
+        it).  Returns the step directory written, None on other ranks."""
+        path = None
+        if self.is_chief:
+            path = ckpt_lib.save_checkpoint(
+                self.train_dir,
+                self.global_step,
+                dict(self.state._asdict()),
+                config=self.config,
+                train_config=self.train_config,
+            )
+        if self.mesh is not None:
+            mesh_lib.barrier(self.mesh)
+        return path
 
     # ------------------------------------------------------------------
     def prepare_batch(self, frame_indices):
-        """Fetch one step's frames and copy them to the card: stacked
-        (device graphs) or unioned into one padded graph (host graphs;
-        overflow warns and truncates)."""
+        """Fetch this device's frames of one step and copy them to the
+        card: stacked (device graphs) or unioned into one padded graph
+        (host graphs; overflow warns and truncates).  Rank ``d`` of a
+        mesh takes ``frame_indices[d*F:(d+1)*F]``."""
         if len(frame_indices) != self.batch_size:
             raise ValueError("a step takes %d frames, got %d"
                              % (self.batch_size, len(frame_indices)))
+        if self.mesh is not None:
+            f = self.frames_per_device
+            frame_indices = frame_indices[self.mesh.rank * f:
+                                          (self.mesh.rank + 1) * f]
         frames = self.provider.provide_batch(frame_indices)
         if not self.device_graph:
             return pad.to_device(
@@ -387,7 +436,7 @@ class Trainer:
             next_input = None
             for pos, batch_idx in enumerate(starts):
                 t_step = time.perf_counter()
-                if profile_dir and profile is None and (
+                if profile_dir and profile is None and self.is_chief and (
                     step_no >= profile_start
                 ):
                     profile = _Profile(profile_dir, self.device)
@@ -427,35 +476,67 @@ class Trainer:
                         _consume(pending.popleft())
                     if profile is not None and profile_dir:
                         profile.stop()
-                    print("save checkpoint at step %d to %s"
-                          % (step_no, self.train_dir))
+                    if self.is_chief:
+                        print("save checkpoint at step %d to %s"
+                              % (step_no, self.train_dir))
                     self.save()
                     return
             while pending:  # epoch metrics need every step's aux
                 _consume(pending.popleft())
-            lr = float(self.lr_schedule(self.global_step))
-            results = self.metrics.print_epoch(
-                self.global_step, epoch_idx, lr, time.time() - epoch_start
-            )
-            for key, value in results.items():
-                summary.write_summary_scale(
-                    key, value, self.global_step, self.train_dir
-                )
-            summary.write_summary_scale(
-                "learning rate", lr, self.global_step, self.train_dir
-            )
-            if log_fn is not None:
-                log_fn(epoch_idx, self.global_step, results)
+            if self.is_chief:
+                self._epoch_log(epoch_idx, epoch_start, log_fn)
             if (epoch_idx + 1) % self.train_config.get(
                 "save_every_epoch", 20
             ) == 0:
-                print("save checkpoint at epoch %d to %s"
-                      % (epoch_idx, self.train_dir))
+                if self.is_chief:
+                    print("save checkpoint at epoch %d to %s"
+                          % (epoch_idx, self.train_dir))
                 self.save()
         if profile is not None and profile_dir:
             profile.stop()
         self.save()
 
+    def _epoch_log(self, epoch_idx, epoch_start, log_fn):
+        """Print the epoch's metrics and write its summaries."""
+        lr = float(self.lr_schedule(self.global_step))
+        results = self.metrics.print_epoch(
+            self.global_step, epoch_idx, lr, time.time() - epoch_start
+        )
+        for key, value in results.items():
+            summary.write_summary_scale(
+                key, value, self.global_step, self.train_dir
+            )
+        summary.write_summary_scale(
+            "learning rate", lr, self.global_step, self.train_dir
+        )
+        if log_fn is not None:
+            log_fn(epoch_idx, self.global_step, results)
+
     def close(self):
         self.provider.close()
         summary.close(self.train_dir)
+
+
+def run_training(mesh, config, train_config, fetch_spec, num_frames,
+                 device=None) -> Dict:
+    """``train_torch.py``'s run in one process, or in one rank of a
+    launched group (``mesh``): build the ``Trainer``, restore the latest
+    checkpoint, train, close.  Returns the launch count of each
+    hand-written kernel in this process, the steps run and the
+    ``step_log``."""
+    wrappers = {"slab_edge_max": slab.slab_edge_max,
+                "slab_edge_max_backward": slab.slab_edge_max_backward}
+    trainer = Trainer(config, train_config, fetch_spec,
+                      num_frames=num_frames, device=device, mesh=mesh)
+    try:
+        start = trainer.restore()
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        trainer.train()
+    finally:
+        trainer.close()
+    return {
+        "launches": {k: fn.launches - before[k]
+                     for k, fn in wrappers.items()},
+        "steps": trainer.global_step - start,
+        **trainer.step_log,
+    }

@@ -760,3 +760,71 @@ def test_bn_train_step_on_the_card_equals_cpu(cuda):
     assert len(emas[0]) > 0
     for a, b in zip(emas[0], emas[1]):
         assert (a - b).abs().max().item() <= 1e-3 * (1 + b.abs().max().item())
+
+
+def test_data_parallel_trainer_on_the_card(cuda, tmp_path):
+    """Phase 16(a) at a small size: two ranks (``parallel.mesh.launch``,
+    gloo on this card twice, NCCL over two cards) train car_auto_T1 at
+    narrow widths through ``Trainer`` at batch 4 on a synthetic tree,
+    two frames a rank: 2 K1 and 2 K2 launches per frame on each rank,
+    the same parameters on both ranks bit for bit, and the first step
+    against one process training the union of the four frames (no
+    augmentation, no graph randomization): the loss at rtol 1e-5, each
+    leaf's update within 1e-4 of (lr + its largest update)."""
+    import copy
+    import os
+
+    from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
+    from pointgnn_tpu_torch.parallel import dryrun, mesh
+    from pointgnn_tpu_torch.train import pipeline as tpipe
+    from pointgnn_tpu_torch.train.trainer import Trainer
+    from pointgnn_tpu_torch.utils import synthetic_kitti
+
+    cfg = configs.get_config("car_auto_T1_train")
+    for lc in cfg["model_kwargs"]["layer_configs"][:-1]:
+        kw = lc["kwargs"]
+        if "point_MLP_depth_list" in kw:
+            kw["point_MLP_depth_list"] = [16, 24, 32]
+            kw["output_MLP_depth_list"] = [32, 32]
+        else:
+            kw["auto_offset_MLP_depth_list"] = [16, 3]
+            kw["edge_MLP_depth_list"] = [32, 32]
+            kw["update_MLP_depth_list"] = [32, 32]
+    tree = str(tmp_path / "kitti")
+    synthetic_kitti.main(tree, 4, n_ground=2000)
+    tc = configs.get_train_config("car_auto_T1_train")
+    tc.update(batch_size=4, NUM_GPU=2, num_load_dataset_workers=0,
+              data_aug_configs=[], device_graph_rnd3d=False,
+              train_dir=str(tmp_path / "dp"),
+              device_graph_spec=db.spec_from_config(
+                  cfg, num_points=NUM_POINTS, num_keypoints=NUM_KEYPOINTS,
+                  runtime=False))
+    fspec = tpipe.FetchSpec(tpipe.DatasetSpec.from_kitti_root(
+        tree, os.path.join(tree, "3DOP_splits/train.txt"), 4), cfg, tc)
+    devices = (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+               else ["cuda:0", "cuda:0"])
+    job = dict(config=cfg, train_config=tc, fetch_spec=fspec, num_frames=4,
+               batches=[[0, 1, 2, 3]] * 2, snapshots=(1,))
+    ranks = [r[0] for r in mesh.launch(dryrun.train_jobs, 2, [job],
+                                       devices=devices, timeout=300,
+                                       join_timeout=300)]
+    assert dryrun.same_params(ranks)
+    for res in ranks:
+        assert res["launches"] == [[4, 4], [4, 4]]  # (1 + T) x 2 frames
+        assert all(np.isfinite(res["total_loss"]))
+    one_tc = dict(tc, NUM_GPU=1, train_dir=str(tmp_path / "one"))
+    one = Trainer(cfg, one_tc, fspec._replace(train_config=one_tc),
+                  num_frames=4, device=cuda)
+    try:
+        p0 = copy.deepcopy(params_to_numpy(one.state.params))
+        aux = one.train_batch([0, 1, 2, 3])
+        p1 = params_to_numpy(one.state.params)
+    finally:
+        one.close()
+    np.testing.assert_allclose(ranks[0]["total_loss"][0],
+                               float(aux["total_loss"]), rtol=1e-5)
+    lr = tc["initial_lr"]
+    for t0, a, b in zip(*(optimizers.param_leaves(params_from_jax(p, "cpu"))
+                          for p in (p0, ranks[0]["snapshots"][1], p1))):
+        ua, ub = a - t0, b - t0
+        assert (ua - ub).abs().max() <= 1e-4 * (lr + ub.abs().max())

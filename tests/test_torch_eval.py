@@ -249,7 +249,8 @@ def test_routing_and_eval_mode(setup):
     """``"auto"`` follows the frozen train_config; otherwise the
     evaluation runs on host-built graphs (4x the family's edge buckets
     for a checkpoint trained on device graphs); the eval mode keeps
-    ``pallas_tail`` and the forward slab wiring, as the JAX model does."""
+    ``pallas_tail`` and the forward slab wiring, as the JAX model does;
+    the loss's ``unify_weights`` (data parallelism) scale its terms."""
     ev = _port_evaluator(setup)
     try:
         assert ev.model.mode == "eval"
@@ -289,9 +290,31 @@ def test_routing_and_eval_mode(setup):
         assert port.slab_level1 == ref.slab_level1, mode
     with pytest.raises(ValueError, match="mode"):
         PointGNN(4, 7, mode="serve", **cfg["model_kwargs"])
-    loss_fn = tstep.make_loss_fn(port, loss_config(cfg))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        loss_fn(None, None, unify_weights=(1.0, 1.0))
+    # unify_weights (w, vw) scale cls_loss by w and loc_loss by vw, as
+    # the JAX make_loss_fn does; the unscaled loss is the w = vw = 1 case
+    ev = _port_evaluator(setup)
+    try:
+        fetch = tdpipe.build_device_fetch(tpipe.FetchSpec(
+            tpipe.DatasetSpec.from_kitti_root(setup["tree"], "", 4),
+            cfg, {}, is_eval=True, device_spec=ev.device_spec))
+        graph = tdpipe.make_graph_builder(ev.device_spec, 2, cfg)(
+            tdpipe.frames_to_device(fetch(0, 0), "cpu"))
+        params = ckpt.restore_checkpoint(setup["port_dir"],
+                                         device="cpu")[0]["params"]
+        loss_fn = tstep.make_loss_fn(ev.model, loss_config(cfg))
+        with torch.no_grad():
+            _, base = loss_fn(params, graph)
+            w, vw = torch.tensor(0.75), torch.tensor(2.5)
+            total, got = loss_fn(params, graph, unify_weights=(w, vw))
+    finally:
+        ev.close()
+    assert float(base["loc_loss"]) > 0 and float(base["cls_loss"]) > 0
+    assert torch.equal(got["cls_loss"], base["cls_loss"] * w)
+    assert torch.equal(got["loc_loss"], base["loc_loss"] * vw)
+    assert torch.equal(got["reg_loss"], base["reg_loss"])
+    assert torch.equal(total, got["cls_loss"] + got["loc_loss"]
+                       + got["reg_loss"])
+    assert torch.equal(got["total_loss"], total)
 
 
 def test_eval_cli(setup, tmp_path, capsys):

@@ -35,7 +35,8 @@ def test_port_imports_without_jax():
                  "train.pipeline", "train.trainer", "train.summary",
                  "utils.thread_warnings", "train.evaluator",
                  "postprocess.kitti_eval", "nn.segment", "graph.radius",
-                 "graph.builder", "graph.pad"):
+                 "graph.builder", "graph.pad", "parallel.mesh",
+                 "parallel.dryrun"):
         assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """

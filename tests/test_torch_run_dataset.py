@@ -149,7 +149,8 @@ def test_stream_equals_run_frame(setup, depth):
             frames[1].attr, "i"), NUM_POINTS)))
     for a, b in zip(raw[1], ref):
         assert a.tobytes() == b.numpy().tobytes()
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # a real mesh is served in test_torch_stream_mesh.py
+    with pytest.raises(TypeError, match="Mesh or a list of devices"):
         next(pipe.stream(iter(frames), mesh=object()))
 
 

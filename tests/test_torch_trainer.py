@@ -344,11 +344,13 @@ def test_trainer_checkpoint_resume_and_epochs(tree, tmp_path, capsys,
 
 
 def test_trainer_refuses_what_is_not_ported(tree, tmp_path):
-    """(Named when edge-list training and normalized MLPs raised here,
-    naming ROADMAP item 6.)  ``device_graph_slab: false`` builds an
-    edge-list trainer and freezes that routing; a BN config routes to
-    host graphs when ``device_graph`` is unset and trains on them;
-    more than one device still raises, naming item 7."""
+    """(Named when edge-list training, normalized MLPs and data
+    parallelism raised here, naming ROADMAP items 6 and 7; the name
+    predates item 7.)  ``device_graph_slab: false`` builds an edge-list
+    trainer and freezes that routing; a BN config routes to host graphs
+    when ``device_graph`` is unset and trains on them; more than one
+    device outside a launched group raises a ``ValueError`` naming
+    ``parallel.mesh.launch``."""
     root, _ = tree
     cfg, tc, fspec = _trainer_setup(root, tmp_path)
     bn = json.loads(json.dumps(cfg))
@@ -364,7 +366,8 @@ def test_trainer_refuses_what_is_not_ported(tree, tmp_path):
     bn_trainer = Trainer(bn, host_tc, fspec, NUM_FRAMES, device="cpu")
     bn_trainer.close()
     assert not bn_trainer.device_graph and bn_trainer.model.edge_chunks == 1
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # more than one device needs a launched group of ranks
+    with pytest.raises(ValueError, match="parallel.mesh.launch"):
         Trainer(cfg, tc, fspec, NUM_FRAMES, n_devices=2, device="cpu")
     # NUM_GPU 2 on a machine without a second card trains on one
     assert tc["NUM_GPU"] == 2
@@ -433,3 +436,49 @@ def test_train_cli_then_serve(tree, tmp_path, capsys):
     assert "Restored step 2" in capsys.readouterr().out
     assert sorted(os.listdir(os.path.join(out_dir, "data"))) == [
         "%06d.txt" % i for i in range(NUM_FRAMES)]
+
+
+@pytest.mark.parametrize("device,cards,ranks", [
+    ("cuda", 2, 2), ("cuda", 8, 2), ("cuda", 1, 1), ("cuda:0", 2, 1),
+    ("cuda:1", 2, 1), ("cpu", 2, 1)])
+def test_train_cli_rank_count(tree, tmp_path, monkeypatch, capsys, device,
+                              cards, ranks):
+    """train_torch.py and the Trainer take their rank count from one
+    function: on ``cuda``, min(NUM_GPU x COPY_PER_GPU, cards visible)
+    ranks started through ``parallel.mesh.launch``; a named card or the
+    CPU trains in this process on that device.  The training itself is
+    replaced by a recorder."""
+    from pointgnn_tpu_torch.parallel import mesh as tmesh
+    from pointgnn_tpu_torch.train import trainer as ttrainer
+    root, _ = tree
+    cfg, tc, _ = _trainer_setup(root, tmp_path / "run")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert tc["NUM_GPU"] * tc.get("COPY_PER_GPU", 1) == 2
+    assert ttrainer.num_ranks(tc, device) == ranks
+    calls = []
+
+    def run_training(mesh, *args, device=None):
+        calls.append(("run", mesh, device))
+        return {"launches": {}}
+
+    def launch(fn, n, *args):
+        assert fn is run_training
+        calls.append(("launch", n))
+        return [{"launches": {}}] * n
+
+    monkeypatch.setattr(ttrainer, "run_training", run_training)
+    monkeypatch.setattr(tmesh, "launch", launch)
+    cfg_path, tc_path = str(tmp_path / "config"), str(tmp_path / "tc")
+    config_io.save_config(cfg_path, cfg)
+    config_io.save_train_config(tc_path, tc)
+    rc = train_torch.main([tc_path, cfg_path, "--dataset_root_dir", root,
+                           "--dataset_split_file",
+                           os.path.join(root, "3DOP_splits/train.txt"),
+                           "--device", device])
+    assert rc == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["ranks"] == ranks
+    if ranks > 1:
+        assert calls == [("launch", ranks)]
+    else:
+        assert calls == [("run", None, device)]

@@ -17,10 +17,18 @@ MLP: the provider's workers build each frame's graph, the step's frames
 are unioned and padded to the family's ``frame_capacity``), checkpoints
 to the train_config's ``train_dir`` in
 the port's format (``run_torch.py`` serves it) and resumes from the
-latest checkpoint there.  The last line of the output is JSON: the launch count
-of each hand-written kernel in the run, the steps run and, per step, the
-host wall time and the part of it the loop waited for its prefetched
-batch (ms) and the total loss.
+latest checkpoint there.
+
+On the card, the run is data-parallel over ``min(NUM_GPU *
+COPY_PER_GPU, cards visible)`` cards: one process per card, joined by
+NCCL (``pointgnn_tpu_torch.parallel.mesh.launch``), each taking
+``batch_size / n`` frames of every step; rank 0 writes the checkpoints
+and prints the epoch log.  One card, a named card (``--device
+cuda:1``) or ``--device cpu`` trains in this process.  The last line of the output is JSON: rank 0's launch
+count of each hand-written kernel, the steps run and, per step, the host
+wall time and the part of it the loop waited for its prefetched batch
+(ms) and the total loss; then the number of ranks and every rank's
+launch counts.
 """
 
 import argparse
@@ -57,9 +65,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    from pointgnn_tpu_torch.nn import slab
+    from pointgnn_tpu_torch.parallel import mesh
     from pointgnn_tpu_torch.train.pipeline import DatasetSpec, FetchSpec
-    from pointgnn_tpu_torch.train.trainer import Trainer
+    from pointgnn_tpu_torch.train.trainer import num_ranks, run_training
     from pointgnn_tpu_torch.utils import config_io
 
     train_config = config_io.load_train_config(args.train_config_path)
@@ -79,27 +87,18 @@ def main(argv=None):
         num_frames = min(num_frames, train_config["NUM_TEST_SAMPLE"])
     print("Training on %d frames" % num_frames)
 
-    wrappers = {"slab_edge_max": slab.slab_edge_max,
-                "slab_edge_max_backward": slab.slab_edge_max_backward}
-    trainer = Trainer(
-        config,
-        train_config,
-        FetchSpec(spec, config, train_config),
-        num_frames=num_frames,
-        device=args.device,
-    )
-    try:
-        start = trainer.restore()
-        before = {k: fn.launches for k, fn in wrappers.items()}
-        trainer.train()
-    finally:
-        trainer.close()
-    print(json.dumps({
-        "launches": {k: fn.launches - before[k]
-                     for k, fn in wrappers.items()},
-        "steps": trainer.global_step - start,
-        **trainer.step_log,
-    }))
+    fetch_spec = FetchSpec(spec, config, train_config)
+    n_ranks = num_ranks(train_config, args.device)
+    if n_ranks > 1:
+        print("Training data-parallel over %d cards" % n_ranks)
+        results = mesh.launch(run_training, n_ranks, config, train_config,
+                              fetch_spec, num_frames)
+    else:
+        results = [run_training(None, config, train_config, fetch_spec,
+                                num_frames, device=args.device)]
+    print(json.dumps(dict(
+        results[0], ranks=n_ranks,
+        rank_launches=[r["launches"] for r in results])))
     return 0
 
 
