@@ -174,7 +174,22 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     the two ranks' devices against ``stream`` on 8 synthetic frames
     (``DP_STREAM_TOL``, 4 K1 launches a frame); (d)
     ``parallel.dryrun.dryrun_multichip(2)`` on those devices;
-17. prints one ``{"kernels": [...]}`` line and, last, the
+17. the rest of the serving surface and the tools: (a) ``run_torch.py
+    --fast -l 2`` over 2 frames of a synthetic KITTI tree and
+    ``run_torch.py -l 1`` (host graphs) over 1 frame, in subprocesses:
+    every vis PNG decodes (``data/png.py``) at the camera image's or the
+    canvas's shape, the detection image differs from the camera image,
+    the KITTI text is byte-equal to ``run_dataset`` without
+    visualization, 4 K1 launches a frame on the fast run and none on the
+    host run; (b) ``tools_torch/profile_inference.py`` on car_auto_T3
+    at 24576 / 12288 points (every stage, 8 K1 launches a rep); (c)
+    ``tools_torch/profile_train_step.py`` at full width and depth (sgd,
+    lr 0.125, weights from seed 0): every stage, the attribution, the
+    finite-loss steps, 16 K1 and 8 K2 launches a rep; (d)
+    ``tools_torch/tune_slab_kernels.py``'s sweep over the default and
+    ``block_centers`` 16 and 64 on 4 frames: raw outputs bitwise equal
+    to the default's, ms a frame each; the phase's seconds;
+18. prints one ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -3651,6 +3666,216 @@ def data_parallel_phase(report, device):
             "stream": stream_counts}
 
 
+VIS_FRAMES = 2  # run_torch.py --fast -l 2; the host run serves 1
+PROFILE_REPS = 16  # profile_inference, as the tool's default
+TRAIN_PROFILE_REPS = 4
+TUNE_FRAMES = 4
+TUNE_VARIANTS = "16,64"
+
+
+def _vis_cli(ck_dir, tree, out_dir, *flags):
+    """``run_torch.py`` in a subprocess; returns its launch counts."""
+    cmd = [sys.executable, os.path.join(HERE, "run_torch.py"), ck_dir,
+           "--dataset_root_dir", tree, "--output_dir", out_dir] + list(flags)
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, "run_torch.py %s exited %d:\n%s\n%s" % (
+        " ".join(flags), res.returncode, res.stdout[-4000:],
+        res.stderr[-4000:]))
+    return json.loads(res.stdout.strip().splitlines()[-1])["launches"]
+
+
+def _label_texts(out_dir):
+    data = os.path.join(out_dir, "data")
+    return {n: open(os.path.join(data, n), "rb").read()
+            for n in sorted(os.listdir(data))}
+
+
+def tools_phase(report, device):
+    """Phase 17: the rest of the serving surface and the tools.  (a)
+    ``run_torch.py --fast -l 2`` over 2 frames of a synthetic tree and
+    ``run_torch.py -l 1`` (host graphs) over 1 frame: every vis PNG
+    decodes at its shape, the detection image differs from the camera
+    image, the KITTI text equals a run without visualization byte for
+    byte, 4 K1 launches a frame on the fast run and none on the host
+    run; (b) ``tools_torch/profile_inference.py``'s ``profile`` on
+    car_auto_T3 at 24576 / 12288 points; (c)
+    ``tools_torch/profile_train_step.py``'s ``profile`` on car_auto_T3
+    at full width and depth (sgd, lr 0.125, as the JAX tool), its finite
+    loss steps; (d) ``tools_torch/tune_slab_kernels.py``'s ``sweep`` over
+    the default and two ``block_centers`` variants on 4 frames, outputs
+    bitwise equal.  Launches are counted from 0 around each path."""
+    import numpy as np
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.data import png
+    from pointgnn_tpu_torch.data.kitti import KittiDataset
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.train import checkpoint as ckpt
+    from pointgnn_tpu_torch.utils import synthetic_kitti
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+    from pointgnn_tpu_torch.utils.vis import BEV_SIZE
+    from tools_torch import profile_inference, profile_train_step
+    from tools_torch import tune_slab_kernels
+
+    t_phase = time.perf_counter()
+    zero = {name: 0 for name in kernel_wrappers()}
+    launches = {}
+    out = {}
+
+    # (a) visualization from the command line
+    work = os.path.join(HERE, "build", "chip_smoke_vis")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, ck_dir = os.path.join(work, "kitti"), os.path.join(work, "ckpt")
+    names = synthetic_kitti.main(tree, VIS_FRAMES, n_ground=12000)
+    cfg = configs.get_config("car_auto_T3_train")
+    params = InferencePipeline(cfg, seed=0, device="cpu").params
+    ckpt.save_checkpoint(ck_dir, 0, {"params": params}, config=cfg)
+    ds = KittiDataset(
+        os.path.join(tree, "image/training/image_2"),
+        os.path.join(tree, "velodyne/training/velodyne/"),
+        os.path.join(tree, "calib/training/calib/"),
+        os.path.join(tree, "labels/training/label_2"),
+        os.path.join(tree, "3DOP_splits/val.txt"), num_classes=4)
+    vis_runs = {}
+    for key, level, frames, fast in (("fast", 2, VIS_FRAMES, True),
+                                     ("host", 1, 1, False)):
+        out_dir = os.path.join(work, key)
+        t0 = time.perf_counter()
+        counts = _vis_cli(ck_dir, tree, out_dir, "-l", str(level),
+                             "--num_frames", str(frames),
+                             *(("--fast",) if fast else ()))
+        cli_s = time.perf_counter() - t0
+        want_k1 = 4 * frames if fast else 0
+        check(counts == dict(zero, slab_edge_max=want_k1),
+              "run_torch.py -l %d (%s) launches %s, want %d slab_edge_max"
+              % (level, key, counts, want_k1))
+        launches["vis_cli_" + key] = counts
+        # the same run without visualization, in this process
+        pipe = InferencePipeline(cfg, checkpoint_dir=ck_dir, device=device,
+                                 on_device_graph=fast)
+        plain_dir = os.path.join(work, key + "_plain")
+        pipe.run_dataset(ds, plain_dir, num_frames=frames, verbose=False)
+        texts = _label_texts(out_dir)
+        check(texts == _label_texts(plain_dir),
+              "run_torch.py -l %d (%s): KITTI text differs from the run "
+              "without visualization" % (level, key))
+        check(sorted(texts) == [n + ".txt" for n in names[:frames]],
+              "label files %s" % sorted(texts))
+        suffixes = ("", "_bev") + (("_3d",) if level >= 2 else ())
+        vis_dir = os.path.join(out_dir, "vis")
+        files = sorted(os.listdir(vis_dir))
+        check(files == sorted(n + s + ".png" for n in names[:frames]
+                              for s in suffixes), "vis files %s" % files)
+        changed = []
+        for i, name in enumerate(names[:frames]):
+            image = ds.get_image(i)
+            det = png.read_png(os.path.join(vis_dir, name + ".png"))
+            check(det.shape == image.shape, "%s.png shape %s" % (
+                name, det.shape))
+            changed.append(int((det != image).any(axis=2).sum()))
+            check(changed[-1] > 0, "%s.png equals the camera image" % name)
+            for suffix in suffixes[1:]:
+                bev = png.read_png(os.path.join(vis_dir, name + suffix
+                                                + ".png"))
+                check(bev.shape == (BEV_SIZE, BEV_SIZE, 3),
+                      "%s%s.png shape %s" % (name, suffix, bev.shape))
+        vis_runs[key] = dict(level=level, frames=frames, cli_seconds=cli_s,
+                             launches=counts, vis_files=len(files),
+                             changed_pixels=changed,
+                             detections=[len(t.splitlines()) - 1
+                                         for t in texts.values()])
+    shutil.rmtree(work, ignore_errors=True)
+    out["vis_cli"] = vis_runs
+
+    # (b) profile_inference at the tool's defaults (car T=3)
+    car = configs.model_config("Car", T=3)
+    spec = db.spec_from_config(car, num_points=24576, num_keypoints=12288,
+                               per_center_caps=(32, 192))
+    reset_counts()
+    prof = profile_inference.profile(car, spec, reps=PROFILE_REPS,
+                                     probe=True, device=device)
+    launches["profile_inference"] = read_counts()
+    # device_fn and model.apply, each a warm-up and the timed calls
+    want_k1 = 2 * 4 * (PROFILE_REPS + 1)
+    check(launches["profile_inference"] == dict(zero, slab_edge_max=want_k1),
+          "profile_inference launches %s, want %d slab_edge_max"
+          % (launches["profile_inference"], want_k1))
+    check(all(np.isfinite(v) and v > 0 for k, v in prof.items()
+              if k != "tail_ms"), "profile_inference %s" % prof)
+    out["profile_inference"] = prof
+
+    # (c) profile_train_step at the JAX tool's settings
+    reset_counts()
+    train = profile_train_step.profile(car, reps=TRAIN_PROFILE_REPS,
+                                       probe=False, device=device)
+    launches["profile_train_step"] = read_counts()
+    # forward, loss, grad and step each run K1 4 times a call; grad and
+    # step run K2 4 times a call
+    calls = TRAIN_PROFILE_REPS + 1
+    want = dict(zero, slab_edge_max=16 * calls,
+                slab_edge_max_backward=8 * calls)
+    check(launches["profile_train_step"] == want,
+          "profile_train_step launches %s, want %s"
+          % (launches["profile_train_step"], want))
+    check(np.isfinite(train["first_loss"]) and train["grad_ms"] > 0,
+          "profile_train_step %s" % train)
+    out["profile_train_step"] = train
+
+    # (d) tune_slab_kernels over the default and two variants
+    frames = [synthetic_lidar_frame(seed=i, points_per_beam=380)[0]
+              for i in range(TUNE_FRAMES)]
+    variants = tune_slab_kernels.parse_variants(TUNE_VARIANTS)
+    reset_counts()
+    rows = tune_slab_kernels.sweep(car, spec, variants, frames, TUNE_FRAMES,
+                                   device=device)
+    launches["tune_slab_kernels"] = read_counts()
+    # default, 2 variants and the recheck, each a 4-frame warm-up and the
+    # timed frames, 4 K1 launches a frame
+    want_k1 = 4 * (2 + len(variants)) * (4 + TUNE_FRAMES)
+    check(launches["tune_slab_kernels"] == dict(zero, slab_edge_max=want_k1),
+          "tune_slab_kernels launches %s, want %d slab_edge_max"
+          % (launches["tune_slab_kernels"], want_k1))
+    out["tune_slab_kernels"] = {
+        "variants": [tune_slab_kernels.name_of(t) for t, _ in rows],
+        "ms_per_frame": [ms for _, ms in rows],
+        "suggested": tune_slab_kernels.suggestion(rows),
+        "outputs_bitwise_equal": True}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    report["tools"] = out
+
+    for key, row in vis_runs.items():
+        print("phase 17: run_torch.py%s -l %d served %d frame(s) in %.1f s: "
+              "launches %s, detections %s, %d vis files, detection image "
+              "pixels changed %s; KITTI text equals the run without -l"
+              % (" --fast" if key == "fast" else "", row["level"],
+                 row["frames"], row["cli_seconds"], row["launches"],
+                 row["detections"], row["vis_files"],
+                 row["changed_pixels"]), flush=True)
+    print("phase 17: profile_inference (car T=3, 24576 / 12288, %d reps): "
+          "%s; K1 launches %d" % (PROFILE_REPS, json.dumps(prof),
+                                  launches["profile_inference"][
+                                      "slab_edge_max"]), flush=True)
+    print("phase 17: profile_train_step (car T=3, sgd lr 0.125, %d reps): "
+          "%s; K1 %d, K2 %d launches" % (
+              TRAIN_PROFILE_REPS, json.dumps(train),
+              launches["profile_train_step"]["slab_edge_max"],
+              launches["profile_train_step"]["slab_edge_max_backward"]),
+          flush=True)
+    tune = out["tune_slab_kernels"]
+    print("phase 17: tune_slab_kernels (%d frames): %s ms per frame; "
+          "outputs bitwise equal to the default's; suggested %s; K1 "
+          "launches %d" % (TUNE_FRAMES, dict(zip(tune["variants"],
+                                                 tune["ms_per_frame"])),
+                           tune["suggested"],
+                           launches["tune_slab_kernels"]["slab_edge_max"]),
+          flush=True)
+    print("phase 17: %.1f s" % out["seconds"], flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -3720,6 +3945,9 @@ def main():
     edge_k = edge_training_phase(report, device)["launches"]
     # phase 16's data-parallel steps (both ranks) and sharded stream
     dp_k = data_parallel_phase(report, device)
+    # phase 17's runs, each counted from 0: run_torch.py -l, the profilers
+    # and the tuner
+    tools_k = tools_phase(report, device)
 
     n_l1 = 3  # car_auto_T3: one level-0 and three level-1 launches
 
@@ -3754,7 +3982,8 @@ def main():
                      + sl["serve_fast"]["slab_edge_max"]
                      + edge_k["slab_edge_max"]
                      + dp_k["training"]["slab_edge_max"]
-                     + dp_k["stream"]["slab_edge_max"]),
+                     + dp_k["stream"]["slab_edge_max"]
+                     + sum(r["slab_edge_max"] for r in tools_k.values())),
         "launches_by_path": {
             "serving": serving_launches, "training": train_k1,
             "l1_serving": edge["l1"]["launches"]["slab_edge_max"],
@@ -3764,7 +3993,8 @@ def main():
             "host_smoke_fast_pass": sl["serve_fast"]["slab_edge_max"],
             "edge_list_training_and_options": edge_k["slab_edge_max"],
             "data_parallel_training": dp_k["training"]["slab_edge_max"],
-            "data_parallel_stream": dp_k["stream"]["slab_edge_max"]},
+            "data_parallel_stream": dp_k["stream"]["slab_edge_max"],
+            **{path: r["slab_edge_max"] for path, r in tools_k.items()}},
         # phase 2 (car_T3 serving shapes), phase 11 (the CLI's spec) and
         # phase 13 (an eval step, f32, bitwise)
         "max_abs_err": max([lv["L0"]["max_abs_err"], lv["L1"]["max_abs_err"]]
@@ -3797,7 +4027,9 @@ def main():
         "launches": (train_k2 + cli_k2 + smoke_k2
                      + host_k["slab_edge_max_backward"]
                      + edge_k["slab_edge_max_backward"]
-                     + dp_k["training"]["slab_edge_max_backward"]),
+                     + dp_k["training"]["slab_edge_max_backward"]
+                     + sum(r["slab_edge_max_backward"]
+                           for r in tools_k.values())),
         "launches_by_path": {"training": train_k2, "train_cli": cli_k2,
                              "eval_cli": report["eval"]["launches"][
                                  "eval_cli_K2"],
@@ -3806,7 +4038,9 @@ def main():
                              "edge_list_training_and_options": edge_k[
                                  "slab_edge_max_backward"],
                              "data_parallel_training": dp_k["training"][
-                                 "slab_edge_max_backward"]},
+                                 "slab_edge_max_backward"],
+                             **{path: r["slab_edge_max_backward"]
+                                for path, r in tools_k.items()}},
         # phase 5 (car_T3 training shapes) and phase 12 (ped_cyl's step)
         "max_abs_err": max([tl["L0"]["max_abs_err"], tl["L1"]["max_abs_err"]]
                            + [r["k2_max_abs_err"] for r in ped_rows]),
@@ -3836,7 +4070,8 @@ def main():
                     "kitti_cli": kitti.get(name, 0),
                     "host_graph": host_k[name],
                     "data_parallel_stream": dp_k["stream"][name],
-                    "edge_list_training_and_options": edge_k[name]}
+                    "edge_list_training_and_options": edge_k[name],
+                    **{path: r[name] for path, r in tools_k.items()}}
         key = "K3" if name == "edge_tail_max" else "K4"
         lv_k = {lvl: dict(el[lvl][key], valid_slots=el[lvl]["valid_slots"])
                 for lvl in ("L0", "L1")}

@@ -1,13 +1,15 @@
-"""KITTI 3D-object dataset reader, the serving and training subset
-(copy of :mod:`pointgnn_tpu.data.kitti`), with the class-aware label
-assigners in method form.
+"""KITTI 3D-object dataset reader (copy of
+:mod:`pointgnn_tpu.data.kitti`), with the class-aware label assigners in
+method form.
 
-Velodyne ``.bin`` point loading, calibration parsing and the
-velo->rect->cam->image chain (with its sanity check), label parsing with
-per-difficulty filtering, camera-frustum point selection, per-point RGB
-attachment and the coordinate transforms that serving uses.  Images are
-read with :func:`pointgnn_tpu_torch.data.png.read_png` (BGR, as
-``cv2.imread`` gives them).
+Velodyne ``.bin`` point loading, calibration parsing (object and raw
+recordings) and the velo->rect->cam->image chain (with its sanity
+check), label parsing and formatting with per-difficulty filtering,
+camera-frustum point selection, per-point RGB attachment, every
+coordinate transform, voxel downsampling, box selection and per-class
+statistics.  Images are read with
+:func:`pointgnn_tpu_torch.data.png.read_png` (BGR, as ``cv2.imread``
+gives them).
 """
 
 import os
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from pointgnn_tpu_torch.core import boxes as box_ops
 from pointgnn_tpu_torch.core.points import Points
 from pointgnn_tpu_torch.data import labels as label_lib
 from pointgnn_tpu_torch.data.png import read_png
@@ -44,6 +47,16 @@ def parse_label_line(line: str) -> Optional[Dict]:
     if len(fields) > 15:
         label["score"] = float(fields[15])
     return label
+
+
+def format_label_line(label: Dict) -> str:
+    """Dict -> KITTI label/detection line (inverse of parse_label_line)."""
+    parts = [label["name"]]
+    parts += ["%.2f" % label["truncation"], "%d" % label["occlusion"]]
+    parts += ["%.6f" % label[k] for k in _LABEL_FIELDS[2:]]
+    if "score" in label:
+        parts.append("%.6f" % label["score"])
+    return " ".join(parts)
 
 
 class KittiDataset:
@@ -172,6 +185,55 @@ class KittiDataset:
             raise ValueError("%s: calibration chain mismatch" % path)
         return calib
 
+    @staticmethod
+    def get_raw_calib(calib_velo_to_cam_path: str,
+                      calib_cam_to_cam_path: str) -> Dict[str, np.ndarray]:
+        """Calibration of the raw KITTI recordings: parse the two raw
+        calib files and derive ``velo_to_cam`` / ``cam_to_velo`` /
+        ``cam_to_image`` / ``velo_to_image`` for rectified camera 2."""
+        calib: Dict[str, np.ndarray] = {}
+        with open(calib_cam_to_cam_path) as f:
+            entries = {}
+            for line in f:
+                if ":" not in line:
+                    continue
+                key, value = line.rstrip("\n").split(":", 1)
+                entries[key] = value
+        shapes = {
+            "S": (1, 2), "K": (3, 3), "D": (1, 5), "R": (3, 3),
+            "T": (3, 1), "S_rect": (1, 2), "R_rect": (3, 3),
+            "P_rect": (3, 4),
+        }
+        for i in range(4):
+            for prefix, shape in shapes.items():
+                key = "%s_0%d" % (prefix, i)
+                calib[key] = np.array(
+                    entries[key].split(), dtype=np.float32
+                ).reshape(shape)
+        with open(calib_velo_to_cam_path) as f:
+            for line in f:
+                if ":" not in line:
+                    continue
+                key, value = line.rstrip("\n").split(":", 1)
+                if key in ("R", "T"):
+                    calib[key] = np.array(
+                        value.split(), dtype=np.float32
+                    ).reshape((3, 3) if key == "R" else (3, 1))
+        calib["Tr_velo_to_cam"] = np.vstack(
+            [np.hstack([calib["R"], calib["T"]]), [0, 0, 0, 1]]
+        )
+        R0 = np.eye(4, dtype=np.float32)
+        R0[:3, :3] = calib["R_rect_00"]
+        T2 = np.eye(4, dtype=np.float32)
+        T2[0, 3] = calib["P_rect_02"][0, 3] / calib["P_rect_02"][0, 0]
+        calib["velo_to_cam"] = T2 @ R0 @ calib["Tr_velo_to_cam"]
+        calib["cam_to_velo"] = np.linalg.inv(calib["velo_to_cam"])
+        calib["cam_to_image"] = np.hstack(
+            [calib["P_rect_02"][:, 0:3], np.zeros((3, 1), np.float32)]
+        )
+        calib["velo_to_image"] = calib["cam_to_image"] @ calib["velo_to_cam"]
+        return calib
+
     def get_label(self, frame_idx: int, no_orientation: bool = False
                   ) -> List[Dict]:
         """Labels, filtered by ``difficulty`` when it is 0, 1 or 2.
@@ -204,12 +266,33 @@ class KittiDataset:
         return Points(xyz=xyz.astype(np.float32), attr=points.attr)
 
     @staticmethod
+    def velo_to_cam(points_xyz: np.ndarray, calib: Dict) -> np.ndarray:
+        T = calib["velo_to_cam"]
+        return points_xyz @ T[:3, :3].T + T[:3, 3]
+
+    @staticmethod
+    def cam_points_to_velo(points: Points, calib: Dict) -> Points:
+        T = calib["cam_to_velo"]
+        xyz = points.xyz @ T[:3, :3].T + T[:3, 3]
+        return Points(xyz=xyz, attr=points.attr)
+
+    @staticmethod
+    def cam_to_velo(points_xyz: np.ndarray, calib: Dict) -> np.ndarray:
+        T = calib["cam_to_velo"]
+        return points_xyz @ T[:3, :3].T + T[:3, 3]
+
+    @staticmethod
     def cam_points_to_image(points: Points, calib: Dict) -> Points:
         """Project to pixel coordinates; z keeps homogeneous scale = 1."""
         P = calib["cam_to_image"]
         uvw = points.xyz @ P[:3, :3].T + P[:3, 3]
         uvw = uvw / uvw[:, [2]]
         return Points(xyz=uvw, attr=points.attr)
+
+    def velo_points_to_image(self, points: Points, calib: Dict) -> Points:
+        return self.cam_points_to_image(
+            self.velo_points_to_cam(points, calib), calib
+        )
 
     @staticmethod
     def rgb_to_cam_points(points: Points, image: np.ndarray, calib: Dict) -> Points:
@@ -287,6 +370,41 @@ class KittiDataset:
             frame_idx, downsample_voxel_size, calib, xyz_range)
         return self.rgb_to_cam_points(in_img, image, calib)
 
+    # -- geometry ------------------------------------------------------------
+
+    def downsample_by_voxel(self, points: Points, voxel_size: float,
+                            method: str = "AVERAGE") -> Points:
+        """Voxel downsampling (:mod:`graph.voxel`): ``"AVERAGE"`` or
+        ``"RANDOM"``."""
+        if method == "AVERAGE":
+            return voxel.voxel_downsample_average(points, voxel_size)
+        if method == "RANDOM":
+            return voxel.voxel_downsample_random(points, voxel_size)
+        raise ValueError("unknown downsample method %s" % method)
+
+    @staticmethod
+    def box3d_to_cam_points(label: Dict,
+                            expend_factor=(1.0, 1.0, 1.0)) -> Points:
+        """The label's box corners in camera coordinates."""
+        corners = box_ops.box_to_corners(
+            box_ops.label_to_box(label), expend_factor
+        )
+        return Points(xyz=corners, attr=None)
+
+    @staticmethod
+    def sel_xyz_in_box3d(label, xyz, expend_factor=(1.0, 1.0, 1.0)):
+        """Mask of the points inside the label's (expanded) 3D box."""
+        return box_ops.points_in_box(
+            xyz, box_ops.label_to_box(label), expend_factor
+        )
+
+    @staticmethod
+    def sel_xyz_in_box2d(label, xyz, expend_factor=(1.0, 1.0, 1.0)):
+        """Mask of the points inside the label's bird's-eye footprint."""
+        return box_ops.points_in_box_bev(
+            xyz, box_ops.label_to_box(label), expend_factor
+        )
+
     # -- label assignment (the JAX dataset's method form) -------------------
 
     def assign_classaware_label_to_points(self, labels, xyz, expend_factor):
@@ -311,3 +429,36 @@ class KittiDataset:
                              "dataset" % self.num_classes)
         return label_lib.assign_classaware_ped_and_cyc_label_to_points(
             labels, xyz, expend_factor)
+
+    # -- statistics --------------------------------------------------------
+
+    def get_statistics(self) -> Dict[str, Dict[str, float]]:
+        """Per-class size/position statistics over the whole dataset:
+        ``{class: {field: median}}`` over the labels whose 2D box starts
+        below the image's top edge and is taller than 25 px."""
+        acc: Dict[str, Dict[str, List[float]]] = {}
+        for frame_idx in range(self.num_files):
+            for label in self.get_label(frame_idx):
+                if label["ymin"] > 0 and label["ymax"] - label["ymin"] > 25:
+                    rec = acc.setdefault(label["name"], {})
+                    for k in ("height", "width", "length", "x3d", "y3d",
+                              "z3d", "yaw"):
+                        rec.setdefault(k, []).append(label[k])
+        return {
+            name: {k: float(np.median(v)) for k, v in rec.items()}
+            for name, rec in acc.items()
+        }
+
+    def __str__(self) -> str:
+        return (
+            "KittiDataset(image_dir=%s, point_dir=%s, calib_dir=%s, "
+            "label_dir=%s, index=%s, frames=%d)"
+            % (
+                self._image_dir,
+                self._point_dir,
+                self._calib_dir,
+                self._label_dir,
+                self._index_filename,
+                self.num_files,
+            )
+        )

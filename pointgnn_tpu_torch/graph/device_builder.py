@@ -534,18 +534,40 @@ def host_overflow_stats(xyz: np.ndarray, spec: DeviceGraphSpec):
 PACK_SENTINEL = 1e6
 
 
+def _warn_point_drop(n_in, num_points):
+    if n_in > num_points:
+        # deferred to the consuming thread when called from the
+        # trainer's prefetch worker (utils/thread_warnings)
+        thread_warnings.warn(
+            "point overflow: frame has %d points > device capacity %d; "
+            "dropping %d (far-field detections may be lost — raise "
+            "num_points in the DeviceGraphSpec)"
+            % (n_in, num_points, n_in - num_points),
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def pad_points(xyz: np.ndarray, attr: np.ndarray, num_points: int):
+    """Host-side: pad raw points to the spec capacity as three arrays,
+    ``(xyz [P, 3], attr [P, C], mask [P])`` f32, pad rows zero.  Warns
+    when points are dropped."""
+    _warn_point_drop(len(xyz), num_points)
+    n = min(len(xyz), num_points)
+    out_xyz = np.zeros((num_points, 3), np.float32)
+    out_attr = np.zeros((num_points, attr.shape[1]), np.float32)
+    mask = np.zeros((num_points,), np.float32)
+    out_xyz[:n] = xyz[:n]
+    out_attr[:n] = attr[:n]
+    mask[:n] = 1.0
+    return out_xyz, out_attr, mask
+
+
 def pack_points(xyz: np.ndarray, attr: np.ndarray, num_points: int):
     """Host-side: one [num_points, 3 + C] f32 payload; pad rows carry
     sentinel coordinates.  Warns when points beyond the capacity are
     dropped."""
-    if len(xyz) > num_points:
-        thread_warnings.warn(
-            "point overflow: frame has %d points > device capacity %d; "
-            "dropping %d (raise num_points in the DeviceGraphSpec)"
-            % (len(xyz), num_points, len(xyz) - num_points),
-            RuntimeWarning,
-            stacklevel=2,
-        )
+    _warn_point_drop(len(xyz), num_points)
     n = min(len(xyz), num_points)
     out = np.zeros((num_points, 3 + attr.shape[1]), np.float32)
     out[n:, :3] = PACK_SENTINEL

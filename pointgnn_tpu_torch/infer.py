@@ -193,6 +193,49 @@ def _tree_to(tree, device):
     return None if tree is None else tree.to(device, copy=True)
 
 
+# the JAX pipeline's slab_tuning keys that shape the Pallas kernel's walk
+# (tile rows, MLP sub-blocks, the z-scan): the CUDA kernel has no such knob
+PALLAS_ONLY_TUNING = ("tile", "sub", "zscan")
+
+
+def slab_tuning_levels(slab_tuning: Optional[Dict]):
+    """``(level 0, level 1)`` kernel options of a ``slab_tuning`` dict,
+    read as the JAX pipeline reads it: flat (``{"block_centers": 16}``,
+    both levels) or per level (``{"level0": {...}, "level1": {...}}``; a
+    level without its key takes the flat keys).  Only ``block_centers``
+    (a positive int) reaches ``slab_edge_max``; ``tile``, ``sub`` and
+    ``zscan`` and any unknown key raise ``ValueError``."""
+    tuning = dict(slab_tuning or {})
+
+    def pick(t, where, levels=False):
+        allowed = ("block_centers",) + (("level0", "level1") if levels
+                                        else ())
+        pallas = sorted(k for k in t if k in PALLAS_ONLY_TUNING)
+        if pallas:
+            raise ValueError(
+                "slab_tuning%s: %s: options of the Pallas kernel's walk, "
+                "with no CUDA counterpart; only block_centers tunes "
+                "slab_edge_max" % (where, ", ".join(pallas)))
+        unknown = sorted(str(k) for k in t if k not in allowed
+                         and k not in PALLAS_ONLY_TUNING)
+        if unknown:
+            raise ValueError("slab_tuning%s: unknown keys %s"
+                             % (where, ", ".join(unknown)))
+        if "block_centers" not in t:
+            return {}
+        bk = t["block_centers"]
+        if isinstance(bk, bool) or not isinstance(bk, (int, np.integer)) \
+                or bk < 1:
+            raise ValueError("slab_tuning%s: block_centers must be a "
+                             "positive int, got %r" % (where, bk))
+        return {"block_centers": int(bk)}
+
+    flat = pick(tuning, "", levels=True)
+    return tuple(
+        pick(tuning[key], "[%r]" % key) if key in tuning else flat
+        for key in ("level0", "level1"))
+
+
 class InferencePipeline:
     """Drives one config + parameter set over frames.
 
@@ -216,7 +259,13 @@ class InferencePipeline:
     card and on the CPU (where the kernels' plain versions run), so the
     default is the slab path.  The device spec's slab flags are set both
     ways: a spec passed in with flags set has them cleared where slab
-    resolves off.
+    resolves off.  ``edge_chunks`` is the segment path's edge blocks
+    (default 8 on device-built graphs, else one block, as in JAX).
+    ``slab_tuning`` (:func:`slab_tuning_levels`) sets ``slab_edge_max``'s
+    ``block_centers`` (the center blocks of its pair-list windows) per
+    level; the pair list is exact, so every accepted value gives the
+    same detections.  It raises on host-built graphs and for a level
+    that does not run ``slab_edge_max``.
 
     ``params`` are restored from ``checkpoint_dir`` (the port's format,
     :mod:`train.checkpoint`) when given, else drawn from ``seed``;
@@ -239,6 +288,8 @@ class InferencePipeline:
         slab="auto",
         on_device_graph: bool = False,
         auto_capacity: bool = True,
+        edge_chunks: Optional[int] = None,
+        slab_tuning: Optional[Dict] = None,
     ):
         self.device = resolve_device(device)
         self.config = config
@@ -257,9 +308,10 @@ class InferencePipeline:
             config["box_encoding_method"]
         )
         if not on_device_graph and (device_spec is not None
-                                    or slab != "auto"):
+                                    or slab != "auto" or slab_tuning):
             raise ValueError(
-                "device_spec and slab configure device-built graphs; "
+                "device_spec, slab and slab_tuning configure device-built "
+                "graphs; "
                 "on_device_graph=False builds the graph on the host"
             )
         self.on_device_graph = on_device_graph
@@ -268,7 +320,6 @@ class InferencePipeline:
         self.compute_dtype = compute_dtype
         self.device_spec = None
         slab_level1 = slab_level0 = None
-        edge_chunks = None  # the model's default: one block
         if self.on_device_graph:
             fast_ok = all(
                 lc.get("kwargs", {}).get(key, "NONE") == "NONE"
@@ -288,11 +339,24 @@ class InferencePipeline:
                 slab_level1=bool(self.slab),
                 slab_level0=bool(self.slab) and self.slab != "l1",
             )
-            if self.device_spec.slab_level1:
-                slab_level1 = db.slab_kernel_wiring(self.device_spec.level1)
-            if self.device_spec.slab_level0:
-                slab_level0 = db.slab_kernel_wiring(self.device_spec.level0)
-            edge_chunks = 8  # bound the segment path's edge rows
+            t_l0, t_l1 = slab_tuning_levels(slab_tuning)
+            runs = (self.device_spec.slab_level0,
+                    self.device_spec.slab_level1)
+            if slab_tuning and (not any(runs) or any(
+                    "level%d" % lv in slab_tuning and not runs[lv]
+                    for lv in (0, 1))):
+                raise ValueError(
+                    "slab_tuning %r tunes slab_edge_max at a level this "
+                    "pipeline does not run it on (slab=%r)"
+                    % (slab_tuning, self.slab))
+            if runs[1]:
+                slab_level1 = dict(
+                    db.slab_kernel_wiring(self.device_spec.level1), **t_l1)
+            if runs[0]:
+                slab_level0 = dict(
+                    db.slab_kernel_wiring(self.device_spec.level0), **t_l0)
+            if edge_chunks is None:
+                edge_chunks = 8  # bound the segment path's edge rows
         else:
             self.pallas_tail = False
             self.slab = False
@@ -691,6 +755,35 @@ class InferencePipeline:
         with open(filename, "w") as f:
             f.write(format_kitti_lines(pred_labels))
 
+    def _write_vis(self, dataset, frame_idx, output_dir, points, calib,
+                   class_labels, boxes, pred_labels, is_test, level):
+        """The visualization files of one frame (see :meth:`run_dataset`)."""
+        from pointgnn_tpu_torch.utils import interactive, vis
+
+        vis_dir = os.path.join(output_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        name = dataset.get_filename(frame_idx)
+        vis.save_detection_image(
+            dataset.get_image(frame_idx), pred_labels, calib,
+            os.path.join(vis_dir, name + ".png"),
+        )
+        gt_boxes = None
+        if not is_test:
+            gt_boxes = [box_ops.label_to_box(label)
+                        for label in dataset.get_label(frame_idx)
+                        if label["name"] != "DontCare"]
+        vis.plot_bev(points.xyz, boxes, gt_boxes,
+                     path=os.path.join(vis_dir, name + "_bev.png"))
+        if level >= 2:
+            # one class name per box (the truncation filter may have
+            # dropped some of them from pred_labels)
+            names = ALL_CLASS_NAMES[self.label_method]
+            interactive.vis_detections(
+                points.xyz, boxes,
+                names=[names[int(c)] for c in class_labels],
+                save_path=os.path.join(vis_dir, name + "_3d.png"),
+            )
+
     def run_dataset(
         self,
         dataset,
@@ -707,15 +800,17 @@ class InferencePipeline:
         each bucket's time per frame: ``fetch input`` (reading the frame;
         on the stream's worker), ``gen graph``, ``gnn inference``,
         ``decode box`` (host graphs), ``nms`` and ``total`` (the wall
-        time of the loop).  ``is_test`` only matters to visualization,
-        which is not ported: ``visualization_level >= 1`` raises."""
-        if visualization_level >= 1:
-            raise NotImplementedError(
-                "visualization_level >= 1 needs utils/vis.py, which is "
-                "not ported"
-            )
+        time of the loop).
+
+        ``visualization_level >= 1`` runs frame by frame through
+        :meth:`run_frame` on either graph kind, as JAX does, and also
+        writes ``<output_dir>/vis/<frame>.png`` (detections over the
+        camera image) and ``<frame>_bev.png`` (the bird's-eye view with
+        the detections, and the ground truth unless ``is_test``); level 2
+        adds ``<frame>_3d.png`` (:func:`utils.interactive.vis_detections`:
+        an Open3D render when it imports, else the headless view)."""
         n = dataset.num_files if num_frames < 0 else num_frames
-        calibs = []
+        calibs, clouds = [], []
 
         def fetch(i):
             start = time.time()
@@ -723,11 +818,13 @@ class InferencePipeline:
                 i, self.config.get("downsample_by_voxel_size")
             )
             calibs.append(dataset.get_calib(i))
+            if visualization_level >= 1:
+                clouds.append(points)
             self._add_time("fetch input", time.time() - start)
             return points
 
         t_all = time.time()
-        if self.on_device_graph:
+        if self.on_device_graph and visualization_level == 0:
             results = self.stream(fetch(i) for i in range(n))
         else:
             rng = np.random.default_rng(0)
@@ -737,6 +834,12 @@ class InferencePipeline:
                 cls, boxes, scores, calibs[frame_idx], aux
             )
             self._write_kitti_txt(dataset, frame_idx, output_dir, pred_labels)
+            if visualization_level >= 1:
+                self._write_vis(dataset, frame_idx, output_dir,
+                                clouds[frame_idx], calibs[frame_idx], cls,
+                                boxes, pred_labels, is_test,
+                                visualization_level)
+                clouds[frame_idx] = None
         self._add_time("total", time.time() - t_all)
         averages = {
             k: v / max(self.frames_done, 1) for k, v in self.time_dict.items()

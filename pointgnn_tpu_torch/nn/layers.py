@@ -182,6 +182,8 @@ def _slab_agg(tail, table_a, src4, table_b, ctr4, slab, compute_dtype):
         grid_g=slab["grid_g"], radius=slab["radius"],
         halo=slab.get("halo", 1),
         compute_dtype=str(cd).replace("torch.", ""),
+        block_centers=slab.get("block_centers",
+                               slab_ops.DEFAULT_BLOCK_CENTERS),
     )
 
 

@@ -5,7 +5,7 @@ The counterpart of ``run.py``, with the same flags and defaults plus
 ``--device`` (``cuda`` unless asked otherwise):
 
     python3 run_torch.py <checkpoint_path> [--fast] [--dataset_root_dir D] \
-        [--dataset_split_file F] [--output_dir O] [--test] \
+        [--dataset_split_file F] [--output_dir O] [--test] [-l LEVEL] \
         [--no-box-merge] [--no-box-score] [--num_frames N] [--device cpu]
 
 The checkpoint directory holds a frozen ``config`` and a checkpoint in
@@ -15,7 +15,11 @@ KITTI label format to ``<output_dir>/data/*.txt``.  By default each
 frame's graph is built on the host and padded to the config family's
 runtime capacity (grown to fit), and the network runs on the card in f32
 on the segment path; ``--fast`` builds the graphs on the device (the
-slab kernels, bf16).  The last line of the output is the launch count of
+slab kernels, bf16).  ``-l 1`` also draws each frame's detections over
+its camera image and a bird's-eye view into ``<output_dir>/vis/``
+(``-l 2`` adds a 3D view: an Open3D render when Open3D imports, else a
+second bird's-eye view); it serves frame by frame, also with
+``--fast``, and writes the same KITTI text.  The last line of the output is the launch count of
 each hand-written kernel in the run, as JSON (all 0 without ``--fast``).
 """
 
@@ -32,7 +36,8 @@ def parse_args(argv=None):
     parser.add_argument("checkpoint_path", type=str, help="Path to checkpoint")
     parser.add_argument(
         "-l", "--level", type=int, default=0,
-        help="Visualization level: 0 off; >= 1 is not ported",
+        help="Visualization level: 0 off; 1 writes <output_dir>/vis/"
+        "<frame>.png and <frame>_bev.png; 2 also <frame>_3d.png",
     )
     parser.add_argument(
         "--fast", dest="fast", action="store_true", default=False,

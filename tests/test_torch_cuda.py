@@ -307,6 +307,53 @@ def test_skewed_kernel_matches_plain_version(cuda, level, widths,
     assert torch.equal(out == 0, ref == 0) or compute_dtype == "bfloat16"
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("level,widths", SKEWED)
+def test_skewed_kernel_block_centers_bitwise(cuda, level, widths,
+                                             compute_dtype):
+    """``block_centers`` only sets the pair kernel's windows: the pair
+    list and the outputs are bitwise the same at 16, 32 and 64."""
+    kw = dict(_skewed(cuda, level, widths), compute_dtype=compute_dtype)
+    outs, pairs = {}, {}
+    for bk in (16, 32, 64):
+        outs[bk] = slab.slab_edge_max(**dict(kw, block_centers=bk))
+        win_lo, win_hi = slab.column_row_windows(
+            kw["offsets"], kw["center_cell"], kw["grid_g"], bk, 1)
+        pairs[bk] = slab.pair_list(kw["src_xyz"], kw["ctr_xyz"], win_lo,
+                                   win_hi, bk, kw["radius"])
+    for bk in (16, 64):
+        assert torch.equal(outs[bk], outs[32]), bk
+        for x, y in zip(pairs[bk], pairs[32]):
+            assert torch.equal(x, y), bk
+
+
+def test_slab_tuning_detections_bitwise(cuda):
+    """``InferencePipeline(slab_tuning=...)``: 3 launches a frame and the
+    default's detections bit for bit, flat and per level."""
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS)
+    base = InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             device=cuda)
+    frames = [synthetic_lidar_frame(seed=s, n_beams=32,
+                                    points_per_beam=160)[0]
+              for s in range(2)]
+    want = [base.run_frame(p) for p in frames]
+    assert sum(len(w[0]) for w in want) > 0
+    for tuning in ({"block_centers": 16}, {"block_centers": 64},
+                   {"level0": {"block_centers": 8},
+                    "level1": {"block_centers": 128}}):
+        pipe = InferencePipeline(cfg, params=base.params,
+                                 on_device_graph=True, device_spec=spec,
+                                 device=cuda, slab_tuning=tuning)
+        before = slab.slab_edge_max.launches
+        got = [pipe.run_frame(p) for p in frames]
+        assert slab.slab_edge_max.launches == before + 3 * len(frames)
+        for w, g in zip(want, got):
+            for a, b in zip(w[:3], g[:3]):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
 @pytest.mark.parametrize("tie", [False, True])
 @pytest.mark.parametrize("level,widths", SKEWED)
 def test_skewed_backward_kernel_matches_plain_version(cuda, level, widths,

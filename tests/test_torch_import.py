@@ -1,7 +1,8 @@
-"""The port imports with JAX, orbax, OpenCV and PIL blocked and pulls in
-nothing of ``pointgnn_tpu``; ``chip_smoke.py`` and the port's scripts
-(``run_torch.py``, ``train_torch.py``, ``eval_torch.py``,
-``smoke_train_eval_torch.py``) import none of them."""
+"""The port imports with JAX, orbax, OpenCV, PIL, matplotlib,
+scikit-learn and Open3D blocked and pulls in nothing of
+``pointgnn_tpu``; ``chip_smoke.py``, the port's scripts (``run_torch.py``,
+``train_torch.py``, ``eval_torch.py``, ``smoke_train_eval_torch.py``) and
+its tools (``tools_torch/*.py``) import none of them."""
 
 import ast
 import os
@@ -13,8 +14,14 @@ import textwrap
 import pointgnn_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "orbax", "cv2", "PIL")
-SCRIPTS = ("run_torch", "train_torch", "eval_torch", "smoke_train_eval_torch")
+BLOCKED = ("jax", "jaxlib", "orbax", "cv2", "PIL", "matplotlib", "sklearn",
+           "open3d")
+TOOLS = tuple(sorted(
+    "tools_torch." + f[:-3]
+    for f in os.listdir(os.path.join(REPO, "tools_torch"))
+    if f.endswith(".py") and f != "__init__.py"))
+SCRIPTS = ("run_torch", "train_torch", "eval_torch",
+           "smoke_train_eval_torch") + TOOLS
 
 
 def _port_modules():
@@ -36,7 +43,8 @@ def test_port_imports_without_jax():
                  "utils.thread_warnings", "train.evaluator",
                  "postprocess.kitti_eval", "nn.segment", "graph.radius",
                  "graph.builder", "graph.pad", "parallel.mesh",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "utils.vis", "utils.interactive",
+                 "utils.flops", "train.convert"):
         assert "pointgnn_tpu_torch." + name in mods, name
     code = textwrap.dedent(
         """
@@ -76,8 +84,10 @@ def _imported_names(path):
 
 
 def test_chip_smoke_imports_no_jax():
+    assert len(TOOLS) == 7, TOOLS
     for script in ("chip_smoke",) + SCRIPTS:
-        names = _imported_names(os.path.join(REPO, script + ".py"))
+        names = _imported_names(
+            os.path.join(REPO, script.replace(".", os.sep) + ".py"))
         assert any(n.startswith("pointgnn_tpu_torch") for n in names)
         for n in names:
             root = n.split(".")[0]

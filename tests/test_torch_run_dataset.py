@@ -205,9 +205,12 @@ def test_run_dataset_matches_jax(setup, tmp_path):
     assert sorted(mine) == ["000000.txt", "000001.txt", "000002.txt"]
     assert sum(len(t.splitlines()) for t in mine.values()) > 3
     _same_detections(mine, ref)
-    with pytest.raises(NotImplementedError, match="vis"):
-        tpipe.run_dataset(_dataset(root, kitti), str(tmp_path / "v"),
-                          visualization_level=1)
+    # visualization serves frame by frame and writes the same text
+    tpipe.run_dataset(_dataset(root, kitti), str(tmp_path / "v"),
+                      visualization_level=1, verbose=False)
+    assert _read_labels(str(tmp_path / "v")) == mine
+    assert sorted(os.listdir(str(tmp_path / "v" / "vis"))) == sorted(
+        "%06d%s.png" % (i, s) for i in range(3) for s in ("", "_bev"))
 
 
 def _leaves(tree, path=""):
