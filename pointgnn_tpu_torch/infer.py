@@ -23,7 +23,8 @@ the two-level graph, runs the network, softmax, the hypothesis mask,
 top-k and the box decode; the host then folds the vertical classes and
 runs merge-NMS.
 
-Stage times go into ``time_dict`` under the JAX pipeline's bucket names.
+Stage times go into ``time_dict`` under the JAX pipeline's bucket names;
+the native NMS loop's pair counts go into ``nms_counters``.
 """
 
 import collections
@@ -401,6 +402,8 @@ class InferencePipeline:
         self.time_dict: Dict[str, float] = {}
         self._time_lock = threading.Lock()  # stream() times off-thread
         self.overflow_counters: Dict[str, int] = {}
+        # the native NMS loop's pair counts (native.greedy_nms)
+        self.nms_counters: Dict[str, int] = {}
         self.frames_done = 0
 
     # ------------------------------------------------------------------
@@ -595,6 +598,7 @@ class InferencePipeline:
         for v in range(2, self.num_classes - 1, 2):
             sel_labels[sel_labels == v] = v - 1
         nms_fn = nms_lib.get_nms_fn(self.use_box_merge, self.use_box_score)
+        counts: Dict[str, int] = {}
         class_labels, boxes_3d, out_scores, _ = nms_fn(
             sel_labels,
             sel_boxes.astype(np.float64),
@@ -603,7 +607,11 @@ class InferencePipeline:
             overlapped_thres=self.config["nms_overlapped_thres"],
             appr_factor=100.0,
             top_k=-1,
+            counters=counts,
         )
+        with self._time_lock:
+            for key, val in counts.items():
+                self.nms_counters[key] = self.nms_counters.get(key, 0) + val
         return class_labels, boxes_3d, out_scores, aux
 
     # ------------------------------------------------------------------
@@ -847,4 +855,6 @@ class InferencePipeline:
         if verbose:
             for k, v in averages.items():
                 print("%s: %.3f ms/frame" % (k, 1e3 * v))
+            for k, v in self.nms_counters.items():
+                print("nms %s: %.1f/frame" % (k, v / max(self.frames_done, 1)))
         return averages

@@ -116,6 +116,7 @@ def get_lib():
                 f64p, f64p, ctypes.POINTER(ctypes.c_int64), f64p,
                 ctypes.c_int64, ctypes.c_double, ctypes.c_int, ctypes.c_int,
                 f64p, ctypes.POINTER(ctypes.c_uint8),
+                ctypes.POINTER(ctypes.c_int64),
             ]
             u8p = ctypes.POINTER(ctypes.c_uint8)
             lib.pgnn_png_unfilter.restype = ctypes.c_int64
@@ -133,11 +134,18 @@ def get_lib():
     return _lib
 
 
+NMS_COUNTS = ("pairs", "candidates", "clipped")
+
+
 def greedy_nms(boxes, corners, classes, scores, threshold, merge, rescore):
     """The native greedy loop: ``boxes`` [n, 7] sorted by decreasing
     score, ``corners`` [n, 8, 3] of the original (possibly quantized)
     boxes, ``classes`` [n], ``scores`` [n].  Returns ``(keep, scores,
-    boxes)`` as ``postprocess.nms._greedy_nms`` does."""
+    boxes)`` as ``postprocess.nms._greedy_nms`` does, and a dict of its
+    counts over the survivors' pairs (:data:`NMS_COUNTS`): ``pairs``, the
+    kept same-class later boxes (what a scan of every later box tests);
+    ``candidates``, those the grid hands to the bounds test; ``clipped``,
+    those whose bounds meet, clipped once each."""
     n = len(scores)
     boxes = np.ascontiguousarray(boxes, dtype=np.float64)
     corners = np.ascontiguousarray(corners, dtype=np.float64)
@@ -149,6 +157,7 @@ def greedy_nms(boxes, corners, classes, scores, threshold, merge, rescore):
     out_scores = np.array(scores, dtype=np.float64, copy=True)
     out_boxes = np.empty_like(boxes)
     keep = np.empty((n,), dtype=np.uint8)
+    counts = np.zeros((len(NMS_COUNTS),), dtype=np.int64)
 
     def dptr(a):
         return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
@@ -158,8 +167,10 @@ def greedy_nms(boxes, corners, classes, scores, threshold, merge, rescore):
         classes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         dptr(out_scores), n, float(threshold), int(merge), int(rescore),
         dptr(out_boxes), keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
-    return keep.astype(bool), out_scores, out_boxes
+    return (keep.astype(bool), out_scores, out_boxes,
+            dict(zip(NMS_COUNTS, counts.tolist())))
 
 
 def png_unfilter(rows, bpp):

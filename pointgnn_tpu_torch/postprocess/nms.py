@@ -11,7 +11,14 @@ With the default overlap, :func:`iou.overlapped_boxes_3d`, the greedy
 loop runs natively (``csrc/host/nms.cpp`` through
 :mod:`postprocess.native`, which raises if it cannot be built); any
 other ``overlapped_fn`` runs the numpy loop, the plain version the tests
-hold the native one against.
+hold the native one against.  The native loop takes each survivor's
+candidates from a grid over the boxes' x-z bounds: a pair whose
+axis-aligned bounds do not meet overlaps by 0.0, which no threshold >= 0
+exceeds, so only pairs whose bounds meet are tested (a negative threshold
+tests every pair).  It tests them in index order with the same
+arithmetic as the JAX package's native loop, and equals it bit for bit.
+``counters``, a dict, gets the native loop's pair counts added to it
+(:func:`native.greedy_nms`); the numpy loop leaves it as it is.
 """
 
 import numpy as np
@@ -35,15 +42,19 @@ def bboxes_sort(classes, scores, bboxes, top_k=400, attributes=None):
 
 
 def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
-                merge, rescore, quantize_factor=None):
+                merge, rescore, quantize_factor=None, counters=None):
     bboxes = np.array(bboxes, dtype=np.float64, copy=True)
     scores = np.array(scores, copy=True)
     corners = boxes_3d_to_corners(bboxes)
     if quantize_factor is not None:
         corners = np.int32(corners * quantize_factor).astype(np.float64)
     if overlapped_fn is iou.overlapped_boxes_3d:
-        return native.greedy_nms(bboxes, corners, classes, scores,
-                                 nms_threshold, merge, rescore)
+        keep, scores, bboxes, counts = native.greedy_nms(
+            bboxes, corners, classes, scores, nms_threshold, merge, rescore)
+        if counters is not None:
+            for key, val in counts.items():
+                counters[key] = counters.get(key, 0) + val
+        return keep, scores, bboxes
     n = len(scores)
     keep = np.ones(n, dtype=bool)
     for i in range(n - 1):
@@ -67,7 +78,7 @@ def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
 
 def _nms(class_labels, detection_boxes_3d, detection_scores,
          overlapped_thres, overlapped_fn, appr_factor, top_k, attributes,
-         merge, rescore, quantize=False):
+         merge, rescore, quantize=False, counters=None):
     classes, scores, bboxes, attributes = bboxes_sort(
         class_labels, detection_scores, detection_boxes_3d, top_k=top_k,
         attributes=attributes,
@@ -76,7 +87,7 @@ def _nms(class_labels, detection_boxes_3d, detection_scores,
         return classes, bboxes, scores, attributes
     keep, scores, bboxes = _greedy_nms(
         classes, scores, bboxes, overlapped_thres, overlapped_fn,
-        merge, rescore, appr_factor if quantize else None,
+        merge, rescore, appr_factor if quantize else None, counters,
     )
     attributes = attributes[keep] if attributes is not None else None
     return classes[keep], bboxes[keep], scores[keep], attributes
@@ -84,41 +95,46 @@ def _nms(class_labels, detection_boxes_3d, detection_scores,
 
 def nms_boxes_3d(class_labels, detection_boxes_3d, detection_scores,
                  overlapped_thres=0.5, overlapped_fn=iou.overlapped_boxes_3d,
-                 appr_factor=10.0, top_k=-1, attributes=None):
+                 appr_factor=10.0, top_k=-1, attributes=None,
+                 counters=None):
     """Plain suppression over appr_factor-quantized corners."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                attributes, merge=False, rescore=False, quantize=True)
+                attributes, merge=False, rescore=False, quantize=True,
+                counters=counters)
 
 
 def nms_boxes_3d_uncertainty(class_labels, detection_boxes_3d,
                              detection_scores, overlapped_thres=0.5,
                              overlapped_fn=iou.overlapped_boxes_3d,
-                             appr_factor=10.0, top_k=-1, attributes=None):
+                             appr_factor=10.0, top_k=-1, attributes=None,
+                             counters=None):
     """Median merge + overlap-weighted rescoring (the default)."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                attributes, merge=True, rescore=True)
+                attributes, merge=True, rescore=True, counters=counters)
 
 
 def nms_boxes_3d_merge_only(class_labels, detection_boxes_3d,
                             detection_scores, overlapped_thres=0.5,
                             overlapped_fn=iou.overlapped_boxes_3d,
-                            appr_factor=10.0, top_k=-1, attributes=None):
+                            appr_factor=10.0, top_k=-1, attributes=None,
+                            counters=None):
     """Median merge without rescoring."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                attributes, merge=True, rescore=False)
+                attributes, merge=True, rescore=False, counters=counters)
 
 
 def nms_boxes_3d_score_only(class_labels, detection_boxes_3d,
                             detection_scores, overlapped_thres=0.5,
                             overlapped_fn=iou.overlapped_boxes_3d,
-                            appr_factor=10.0, top_k=-1, attributes=None):
+                            appr_factor=10.0, top_k=-1, attributes=None,
+                            counters=None):
     """Rescoring without merging."""
     return _nms(class_labels, detection_boxes_3d, detection_scores,
                 overlapped_thres, overlapped_fn, appr_factor, top_k,
-                attributes, merge=False, rescore=True)
+                attributes, merge=False, rescore=True, counters=counters)
 
 
 def get_nms_fn(box_merge: bool = True, box_score: bool = True):
