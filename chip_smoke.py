@@ -22,7 +22,14 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
    (torch.profiler); also checks the f32 kernel at a small size;
 3. serves 8 frames through ``InferencePipeline.run_frame`` at the full
    width of car_auto_T3 (random weights from seed 0), with the launch
-   count reset just before and read just after: 4 launches per frame;
+   count reset just before and read just after: 4 launches per frame
+   (each a CUDA graph replay after the first frame); holds the replayed
+   ``device_fn`` against the eager program bitwise on those frames and
+   prints each K1 call's pairs beside its capacity; then streams 16
+   benchmark-shaped frames (300-400 points a beam, 32768 points, 16384
+   keypoints) of car_auto_T3 and of ped_cyl_auto_T3 through ``stream``:
+   no K1 overflow (``overflow_counters["k1_pairs"]`` 0), the peak pairs
+   of each call beside its capacity, and the frames a second;
 4. compares the model on the card with the same model on the CPU (the
    plain kernel version) on a small frame, in f32;
 5. holds ``slab_edge_max_backward`` (K2) against its plain version at
@@ -78,7 +85,7 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     against the plain enumeration), times the packed frame's copy to the
     card and the PNG decode of the frame's image written with each row
     filter, times how much of the device program is left when
-    ``device_fn`` returns (K1 reads its pair count on the host), and
+    ``device_fn`` returns (K1 keeps its pair counts on the card), and
     holds the native merge-NMS against the numpy loop in all four
     variants (classes equal, boxes within 1e-12, scores rtol 1e-7),
     printing both times; serves the tree again in-process, warm, and
@@ -523,9 +530,20 @@ def kernel_phase(report, device):
         args = slab_call_inputs(graph, level, spec, widths, 10 + level,
                                 device)
         kw = dict(args, compute_dtype="bfloat16")
-        out = slab.slab_edge_max(**kw)
+        cap = db.k1_pair_capacities(spec)[level]
+
+        def capped(kw=kw, cap=cap):
+            # K1 as serving runs it: the list at a capacity, its count
+            # kept on the card
+            with slab.pair_counts() as log:
+                return slab.slab_edge_max(**kw, pair_capacity=cap), log
+
+        out, log = capped()
+        exact = slab.slab_edge_max(**kw)
         torch.cuda.synchronize()
         ref = slab.slab_edge_max_reference(**kw)
+        check(torch.equal(out, exact), "L%d: K1 at capacity %d differs "
+              "from K1 on the exact list" % (level, cap))
         check(out.shape == ref.shape, "L%d: shape %s vs %s"
               % (level, tuple(out.shape), tuple(ref.shape)))
         check(bool(torch.isfinite(out).all()), "L%d: non-finite" % level)
@@ -541,32 +559,39 @@ def kernel_phase(report, device):
         plist = pair_list_check(args)
         check(plist["pairs"] == pairs, "L%d: pair list %d vs %d pairs"
               % (level, plist["pairs"], pairs))
+        check([(c.item(), c_cap) for c, c_cap in log] == [(pairs, cap)],
+              "L%d: K1 at a capacity logged %s, want [(%d, %d)]"
+              % (level, [(c.item(), c_cap) for c, c_cap in log], pairs,
+                 cap))
         print("phase 2: L%d pair list equals the plain enumeration: %d "
               "pairs, %d chunks of %d, heaviest block %d pairs, heaviest "
               "center %d" % (level, pairs, plist["chunks"], slab.PAIR_CHUNK,
                              plist["heaviest_block_pairs"],
                              plist["max_center_pairs"]), flush=True)
-        ms = time_ms(lambda: slab.slab_edge_max(**kw), runs=20)
+        ms = time_ms(capped, runs=20)
+        exact_ms = time_ms(lambda: slab.slab_edge_max(**kw), runs=20)
         plain_ms = time_ms(lambda: slab.slab_edge_max_reference(**kw),
                            runs=10, warmup=1)
-        split = kernel_split(lambda: slab.slab_edge_max(**kw))
+        split = kernel_split(capped)
         bound_ms, bound_by, flops, n_bytes = bound(args, pairs,
                                                    PEAK_BF16_FLOPS)
         levels["L%d" % level] = dict(
             P=args["table_a"].shape[0], K=args["table_b"].shape[0],
             widths=widths, grid_g=args["grid_g"], radius=args["radius"],
-            inradius_pairs=pairs, max_abs_err=err.max().item(),
-            max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            inradius_pairs=pairs, pair_capacity=cap,
+            max_abs_err=err.max().item(), max_rel_err=rel, ms=ms,
+            exact_list_ms=exact_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, flops=flops, bytes=n_bytes,
             nonzero_rows=int((out.abs().sum(1) > 0).sum()), pair_list=plist,
             device_ms_by_kernel=split,
         )
-        print("phase 2: L%d P=%d K=%d pairs=%d max_abs_err=%.3g "
-              "rel=%.3g (tol %.3g) kernel %.3f ms plain %.3f ms "
-              "bound %.4f ms (%s)"
+        print("phase 2: L%d P=%d K=%d pairs=%d of capacity %d; at the "
+              "capacity == on the exact list bitwise; max_abs_err=%.3g "
+              "rel=%.3g (tol %.3g) kernel %.3f ms (exact list %.3f ms) "
+              "plain %.3f ms bound %.4f ms (%s)"
               % (level, args["table_a"].shape[0], args["table_b"].shape[0],
-                 pairs, err.max().item(), rel, BF16_TOL, ms, plain_ms,
-                 bound_ms, bound_by), flush=True)
+                 pairs, cap, err.max().item(), rel, BF16_TOL, ms, exact_ms,
+                 plain_ms, bound_ms, bound_by), flush=True)
         print("  device ms per call by kernel: %s" % short_split(split),
               flush=True)
     report["levels"] = levels
@@ -598,6 +623,7 @@ def kernel_phase(report, device):
 def serving_phase(report, device):
     """Phase 3: full-width car_auto_T3 serving through run_frame."""
     import numpy as np
+    import torch
 
     from pointgnn_tpu_torch import configs
     from pointgnn_tpu_torch.graph import device_builder as db
@@ -641,17 +667,98 @@ def serving_phase(report, device):
           % (launches, FRAMES, 4 * FRAMES))
     check(counts["edge_tail_max"] == 0, "the slab path launched K3")
     med = {k: statistics.median(v) for k, v in buckets.items()}
+    # the replayed graph against the eager program, bitwise
+    replays = 0
+    for pts in frames:
+        packed = torch.from_numpy(db.pack_points(
+            pts.xyz, pts.attr[:, :1], NUM_POINTS)).to(device)
+        got = pipe.device_fn(pipe.params, packed)
+        k1 = pipe._take_k1()
+        with torch.inference_mode():
+            want, want_k1 = pipe._program(pipe.params, packed)
+        check(all(torch.equal(a, b) for a, b in zip(got, want))
+              and torch.equal(k1[0], want_k1[0]),
+              "the replayed device program differs from the eager one")
+        replays += type(pipe._graphs.get((str(packed.device),
+                                          id(pipe.params)))
+                        ).__name__ == "_GraphedProgram"
+    check(replays == FRAMES, "%d of %d device_fn calls replayed a graph"
+          % (replays, FRAMES))
+    k1 = k1_rows(pipe)
     report["serving"] = dict(
         frames=FRAMES, launches=launches, detections=detections,
         median_ms=med, wall_ms_per_frame=1e3 * wall / FRAMES,
-        overflow=pipe.overflow_counters,
+        overflow=pipe.overflow_counters, k1_calls=k1,
+        graph_equals_eager=True,
     )
     print("phase 3: %d frames, slab_edge_max launches %d (4/frame), "
-          "median ms per frame %s, detections %s, wall %.1f ms/frame"
+          "median ms per frame %s, detections %s, wall %.1f ms/frame; "
+          "graph replay == eager program bitwise on every frame"
           % (FRAMES, launches,
              {k: round(v, 3) for k, v in med.items()}, detections,
              1e3 * wall / FRAMES), flush=True)
+    for i, row in enumerate(k1):
+        print("phase 3: K1 call %d: %.0f pairs a frame, peak %d of "
+              "capacity %d" % (i, row["pairs_per_frame"], row["peak"],
+                               row["capacity"]), flush=True)
     return launches
+
+
+def k1_rows(pipe):
+    """Per K1 call of a pipeline's frames: pairs a frame, the peak and the
+    capacity (``InferencePipeline.k1_counters``)."""
+    c = pipe.k1_counters
+    frames = max(c.get("frames", 0), 1)
+    return [dict(pairs_per_frame=c["call%d_pairs" % i] / frames,
+                 peak=c["call%d_peak" % i],
+                 capacity=c["call%d_capacity" % i])
+            for i in range(len([k for k in c if k.endswith("_capacity")]))]
+
+
+STREAM_FRAMES = 16
+STREAM_SPEC = dict(num_points=32768, num_keypoints=16384)
+
+
+def stream_overflow_phase(report, device):
+    """Phase 3, stream: benchmark-shaped frames of car_auto_T3 and
+    ped_cyl_auto_T3 through ``stream`` with no K1 overflow."""
+    import numpy as np
+
+    from pointgnn_tpu_torch import configs
+    from pointgnn_tpu_torch.graph import device_builder as db
+    from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
+
+    rng = np.random.default_rng(3)
+    out = {}
+    for name in ("Car", "Pedestrian_and_Cyclist"):
+        cfg = configs.model_config(name, T=3)
+        pipe = InferencePipeline(
+            cfg, on_device_graph=True, seed=0, device=device,
+            device_spec=db.spec_from_config(cfg, **STREAM_SPEC))
+        frames = [synthetic_lidar_frame(
+            seed=i, points_per_beam=int(rng.integers(300, 401)))[0]
+            for i in range(STREAM_FRAMES)]
+        for _ in pipe.stream(iter(frames[:2])):  # kernels, capture
+            pass
+        t0 = time.perf_counter()
+        n = sum(1 for _ in pipe.stream(iter(frames)))
+        fps = n / (time.perf_counter() - t0)
+        check(n == STREAM_FRAMES, "stream yielded %d frames" % n)
+        check(pipe.overflow_counters["k1_pairs"] == 0,
+              "%s: %d frames past a K1 capacity"
+              % (name, pipe.overflow_counters["k1_pairs"]))
+        rows = k1_rows(pipe)
+        check(all(r["peak"] <= r["capacity"] // 2 for r in rows),
+              "%s: a K1 call used over half its capacity: %s" % (name, rows))
+        out[name] = dict(frames=n, fps=fps, k1_calls=rows,
+                         overflow=pipe.overflow_counters)
+        print("phase 3: stream %s, %d frames at %.1f frames/s, K1 overflow "
+              "redos %d; per call pairs a frame / peak / capacity %s"
+              % (name, n, fps, pipe.overflow_counters["k1_pairs"],
+                 [(round(r["pairs_per_frame"]), r["peak"], r["capacity"])
+                  for r in rows]), flush=True)
+    report["stream_k1"] = out
 
 
 def cpu_parity_phase(report, device):
@@ -663,6 +770,7 @@ def cpu_parity_phase(report, device):
     from pointgnn_tpu_torch import configs
     from pointgnn_tpu_torch.graph import device_builder as db
     from pointgnn_tpu_torch.infer import InferencePipeline
+    from pointgnn_tpu_torch.nn import slab
     from pointgnn_tpu_torch.params import params_from_jax, params_to_numpy
     from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
 
@@ -682,10 +790,14 @@ def cpu_parity_phase(report, device):
         packed = torch.from_numpy(db.pack_points(
             pts.xyz, pts.attr[:, :1], spec.num_points
         )).to(dev)
-        with torch.inference_mode():
+        # K1 at the serving capacities, as device_fn runs it
+        with torch.inference_mode(), slab.pair_counts() as log:
             graph = db.build_padded_graph(*db.unpack_points(packed),
                                           pipe.device_spec)
             logits, enc = pipe.model.apply(pipe.params, graph)
+        check(all(c.item() <= cap for c, cap in log),
+              "a K1 pair list passed its capacity: %s"
+              % [(c.item(), cap) for c, cap in log])
         outs[dev.type] = [t.cpu().numpy() for t in (
             graph.slab0_offsets, graph.slab_offsets,
             graph.slab_center_cell, graph.keypoint_indices[0],
@@ -1482,7 +1594,9 @@ def device_program_split(pipe, pts, device, calls=3):
     )).to(device)
 
     def program():
-        return pipe.device_fn(pipe.params, packed)
+        # eagerly: a graph replay calls none of the ranged functions
+        with torch.inference_mode():
+            return pipe._program(pipe.params, packed)[0]
 
     by_kernel = kernel_split(program, calls)
     span_ms = time_ms(program, runs=calls, warmup=1)
@@ -1734,28 +1848,49 @@ def capture_k1_calls(run):
 
 
 def capture_slab_inputs(pipe, packed):
-    """The arguments of every ``slab_edge_max`` call of ``device_fn`` on
-    ``packed`` (level 0 first)."""
-    return [args for args, _ in capture_k1_calls(
-        lambda: pipe.device_fn(pipe.params, packed))]
+    """``(arguments, output)`` of every ``slab_edge_max`` call of the
+    device program on ``packed`` (level 0 first), as serving runs it (its
+    pair lists at their capacities), eagerly (a graph replay calls no
+    Python)."""
+    import torch
+
+    def program():
+        with torch.inference_mode():
+            pipe._program(pipe.params, packed)
+
+    return capture_k1_calls(program)
 
 
 def kitti_k1_check(pipe, packed):
     """K1 on the KITTI path's own inputs: every launch of one
-    ``device_fn`` on ``packed`` (the CLI's spec, its checkpoint) held
-    against the plain version, and the pair list of level 0 and of the
-    first level-1 layer against the plain enumeration."""
+    ``device_fn`` on ``packed`` (the CLI's spec, its checkpoint), as the
+    main path ran it (its list at the serving capacity, its count on the
+    card) and again at that capacity, held bitwise against K1 on the
+    exact list and within ``BF16_TOL`` against the plain version, and the
+    pair list of level 0 and of the first level-1 layer against the plain
+    enumeration."""
     import torch
 
+    from pointgnn_tpu_torch.graph import device_builder as db
     from pointgnn_tpu_torch.nn import slab
 
     calls = capture_slab_inputs(pipe, packed)
     check(len(calls) == 4, "device_fn made %d slab calls, want 4"
           % len(calls))
+    caps = db.k1_pair_capacities(pipe.device_spec)
     rows = []
-    for i, args in enumerate(calls):
-        out = slab.slab_edge_max(**args)
+    for i, (args, main_out) in enumerate(calls):
+        cap = caps[min(i, 1)]
+        with slab.pair_counts() as log:
+            out = slab.slab_edge_max(**args, pair_capacity=cap)
+        exact = slab.slab_edge_max(**args)
         torch.cuda.synchronize()
+        pairs = log[0][0].item()
+        check(pairs <= cap, "KITTI K1 call %d: %d pairs past the capacity "
+              "%d" % (i, pairs, cap))
+        check(torch.equal(out, exact) and torch.equal(main_out, exact),
+              "KITTI K1 call %d: K1 at the capacity (the main path's call "
+              "or a new one) differs from K1 on the exact list" % i)
         ref = slab.slab_edge_max_reference(**args)
         check(out.shape == ref.shape, "KITTI K1 call %d: shape %s vs %s"
               % (i, tuple(out.shape), tuple(ref.shape)))
@@ -1766,6 +1901,7 @@ def kitti_k1_check(pipe, packed):
         check(rel <= BF16_TOL, "KITTI K1 call %d: kernel vs plain %.3g > "
               "%.3g" % (i, rel, BF16_TOL))
         row = dict(P=args["table_a"].shape[0], K=args["table_b"].shape[0],
+                   pairs=pairs, pair_capacity=cap,
                    compute_dtype=args["compute_dtype"],
                    max_abs_err=err.max().item(), max_rel_err=rel,
                    bf16_ulps=bf16_ulps(out, ref))
@@ -1882,9 +2018,9 @@ def kitti_cli_phase(report, device):
             png.decode_png(data)
             times.append(1e3 * (time.perf_counter() - t0))
         png_ms[kind] = statistics.median(times)
-    # how much of the device program is left when device_fn returns:
-    # slab_edge_max reads its pair count on the host, so the host waits
-    # for the card inside device_fn; only the rest can overlap host NMS
+    # how much of the device program is left when device_fn returns: K1
+    # keeps its pair counts on the card and the program is one graph
+    # replay, so nearly all of it can overlap host NMS
     dispatch, whole = [], []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -3922,6 +4058,7 @@ def main():
 
     kernel_phase(report, device)
     serving_launches = serving_phase(report, device)
+    stream_overflow_phase(report, device)
     cpu_parity_phase(report, device)
     backward_kernel_phase(report, device)
     train_k1, train_k2 = train_phase(report, device)

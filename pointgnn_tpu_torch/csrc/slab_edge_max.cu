@@ -31,9 +31,12 @@
 //    the wrapper turns the counts into CSR offsets with torch.cumsum;
 // 2. pair_kernel<true>: the same walk writes every in-radius (k, j) to
 //    the list at its center's offset, rows ascending, so the list is the
-//    same on every run;
-// 3. slab_mma::chain_kernel (slab_chain.cuh): chunks of 64 pairs spread
-//    statically over a grid sized to the SMs, the whole chain (bf16 on
+//    same on every run; slots at or past the list's capacity are not
+//    written (the serving path allocates the list once, at a capacity,
+//    and reads the count row_ptr[K] on the card: no host sync);
+// 3. slab_mma::chain_kernel (slab_chain.cuh): chunks of 64 pairs (the
+//    first min(count, capacity) of the list) spread statically over a
+//    grid sized to the SMs, the whole chain (bf16 on
 //    tensor cores) with the weights staged once per CTA in shared memory, a
 //    segmented max over each center's run in the chunk and one atomicMax
 //    on the float bits per run and channel into a zeroed output.
@@ -57,7 +60,8 @@ constexpr int kPairWarps = kPairThreads / 32;
 
 // One warp per center: walks the windows of the center's block in
 // column order, rows ascending.  kWrite == false counts the in-radius
-// rows into counts[k]; kWrite == true writes them from row_ptr[k] on.
+// rows into counts[k]; kWrite == true writes them from row_ptr[k] on,
+// those whose slot is below cap.
 template <bool kWrite>
 __global__ void __launch_bounds__(kPairThreads)
     pair_kernel(const float* __restrict__ src_xyz,
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(kPairThreads)
                 const int* __restrict__ win_lo, const int* __restrict__ win_hi,
                 int* __restrict__ counts, const int* __restrict__ row_ptr,
                 int* __restrict__ pair_k, int* __restrict__ pair_j,
-                int num_centers, int grid_g, int bk, float r2) {
+                int num_centers, int grid_g, int bk, float r2, int cap) {
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * kPairWarps + (threadIdx.x >> 5);
   if (k >= num_centers) return;
@@ -82,8 +86,10 @@ __global__ void __launch_bounds__(kPairThreads)
       const unsigned ballot = __ballot_sync(0xffffffffu, hit);
       if (kWrite && hit) {
         const int slot = n + __popc(ballot & lt_mask);
-        pair_k[slot] = k;
-        pair_j[slot] = r;
+        if (slot < cap) {
+          pair_k[slot] = k;
+          pair_j[slot] = r;
+        }
       }
       n += __popc(ballot);
     }
@@ -95,16 +101,17 @@ cudaError_t launch_pairs(bool write, const float* src_xyz,
                          const float* ctr_xyz, const int* win_lo,
                          const int* win_hi, int* counts, const int* row_ptr,
                          int* pair_k, int* pair_j, int num_centers,
-                         int grid_g, int bk, float r2, cudaStream_t stream) {
+                         int grid_g, int bk, float r2, int cap,
+                         cudaStream_t stream) {
   const int blocks = (num_centers + kPairWarps - 1) / kPairWarps;
   if (write) {
     pair_kernel<true><<<blocks, kPairThreads, 0, stream>>>(
         src_xyz, ctr_xyz, win_lo, win_hi, counts, row_ptr, pair_k, pair_j,
-        num_centers, grid_g, bk, r2);
+        num_centers, grid_g, bk, r2, cap);
   } else {
     pair_kernel<false><<<blocks, kPairThreads, 0, stream>>>(
         src_xyz, ctr_xyz, win_lo, win_hi, counts, row_ptr, pair_k, pair_j,
-        num_centers, grid_g, bk, r2);
+        num_centers, grid_g, bk, r2, cap);
   }
   return cudaGetLastError();
 }
@@ -112,14 +119,15 @@ cudaError_t launch_pairs(bool write, const float* src_xyz,
 }  // namespace
 
 // write == 0: counts [K] of in-radius rows per center; write == 1: the
-// CSR pair list (pair_k, pair_j) at the offsets row_ptr [K + 1].
-// Returns the CUDA error code of the launch (0 on success).
+// CSR pair list (pair_k, pair_j) at the offsets row_ptr [K + 1], its
+// first `capacity` slots.  Returns the CUDA error code of the launch (0
+// on success).
 extern "C" int slab_pairs_launch(const void* src_xyz, const void* ctr_xyz,
                                  const void* win_lo, const void* win_hi,
                                  void* counts, const void* row_ptr,
                                  void* pair_k, void* pair_j, int num_centers,
                                  int grid_g, int bk, float r2, int write,
-                                 int device, void* stream) {
+                                 int capacity, int device, void* stream) {
   if (bk <= 0 || grid_g <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_centers <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -131,20 +139,22 @@ extern "C" int slab_pairs_launch(const void* src_xyz, const void* ctr_xyz,
                      static_cast<int*>(counts),
                      static_cast<const int*>(row_ptr),
                      static_cast<int*>(pair_k), static_cast<int*>(pair_j),
-                     num_centers, grid_g, bk, r2,
+                     num_centers, grid_g, bk, r2, capacity,
                      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 
 // The chain and max over the pair list.  weights_t: the flat chain with
 // every weight transposed to [dout, din]; layer_table: host array of 4
-// ints per layer (weight offset, bias offset, din, dout); out [K, H_out]
-// must be zero.  Returns the CUDA error code (0 on success).
+// ints per layer (weight offset, bias offset, din, dout); n_pairs: the
+// list's length; n_pairs_dev (or null): the pair count on the card, of
+// which the chain runs the first min(*n_pairs_dev, n_pairs); out
+// [K, H_out] must be zero.  Returns the CUDA error code (0 on success).
 extern "C" int slab_edge_max_launch(
     const void* table_a, const void* table_b, const void* weights_t,
     const void* layer_table, int n_layers, const void* pair_k,
-    const void* pair_j, int n_pairs, void* out, int h, int h_out, int bf16,
-    int device, void* stream) {
+    const void* pair_j, int n_pairs, const void* n_pairs_dev, void* out,
+    int h, int h_out, int bf16, int device, void* stream) {
   if (n_layers < 0 || n_layers > kMaxLayers || h <= 0 || h_out <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -158,6 +168,7 @@ extern "C" int slab_edge_max_launch(
   args.pair_k = static_cast<const int*>(pair_k);
   args.pair_j = static_cast<const int*>(pair_j);
   args.n_pairs = n_pairs;
+  args.n_pairs_dev = static_cast<const int*>(n_pairs_dev);
   args.h = h;
   args.h_out = h_out;
   args.chain = slab_mma::read_chain(layer_table, n_layers);

@@ -19,6 +19,7 @@ builder's:
   slot-ranked keys (the kept keys are distinct, so the order is too).
 """
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -109,11 +110,11 @@ def _masked_min(xyz, mask):
 def _cell_keys(xyz, mask, cell_size, origin):
     """Pack integer voxel coordinates into one int32 key; invalid
     points get the maximal key so they sort to the end."""
-    ijk = torch.floor((xyz - origin) / cell_size).to(torch.int32)
-    hi = torch.tensor([_DX - 1, _DY - 1, _DZ - 1], dtype=torch.int32,
-                      device=xyz.device)
-    ijk = torch.minimum(torch.clamp(ijk, min=0), hi)
-    key = ijk[:, 0] + _DX * (ijk[:, 1] + _DY * ijk[:, 2])
+    ijk = torch.clamp(torch.floor((xyz - origin) / cell_size).to(torch.int32),
+                      min=0)
+    i, j, k = (ijk[:, d].clamp(max=hi - 1)
+               for d, hi in enumerate((_DX, _DY, _DZ)))
+    key = i + _DX * (j + _DY * k)
     big = _DX * _DY * _DZ
     return torch.where(mask, key, torch.full_like(key, big))
 
@@ -280,8 +281,8 @@ def radius_edges(
     dy = cand_y - ctr_xyz[:, 1:2]
     dz = cand_z - ctr_xyz[:, 2:3]
     d2 = dx * dx + dy * dy + dz * dz  # inf-filled slots fail the test
-    r2 = torch.tensor(float(np.float32(float(r) * float(r))),
-                      dtype=torch.float32, device=dev)
+    # r^2 rounded to float32, compared as a scalar (no copy to the card)
+    r2 = float(np.float32(float(r) * float(r)))
     ok = (
         (d2 <= r2)
         & ctr_mask[:, None]
@@ -327,6 +328,36 @@ def slab_kernel_wiring(level: LevelSpec) -> dict:
         "radius": level.radius,
         "halo": level.slab_halo,
     }
+
+
+def k1_pair_capacities(spec: DeviceGraphSpec) -> Tuple[int, int]:
+    """Serving's pair-list capacity of ``slab_edge_max`` at level 0 and
+    level 1: the length its pair list is allocated at, so that no call
+    waits for its count on the host.
+
+    Keypoints are one per voxel of side ``v = spec.voxel_size``, and
+    LiDAR returns lie on surfaces, so the keypoints within ``r`` of any
+    point lie in a disc of radius ``r`` that crosses about ``pi (r /
+    v)^2`` voxels of one surface.  A level's pairs are then about its
+    sources (``num_points`` at level 0, ``num_keypoints`` at level 1)
+    times that.  Frames where surfaces meet (the ground under a car, a
+    wall) hold more: 19-26K-point frustum frames gave up to 1.25x it at
+    level 0 (car_auto_T3: 24.5 pairs a point against 19.6) and 1.4x at
+    level 1 (ped_cyl_auto_T3: 282 a keypoint against 201).  The capacity
+    is four times it, never more than every (source, center) pair: at
+    the full spec (32768 / 16384) 2.57M / 20.6M pairs for car_auto_T3
+    (8 bytes a pair: 165 MB at level 1), against peaks of 0.63M / 2.23M
+    on those frames, and 1.65M / 13.2M for ped_cyl_auto_T3 against
+    0.32M / 3.02M.  A frame past a capacity is not cut: its count comes
+    back with its outputs and the serving loop recomputes it on the
+    exact list."""
+    p, k, v = spec.num_points, spec.num_keypoints, spec.voxel_size
+
+    def cap(n_src, level):
+        per_src = math.pi * (level.radius / v) ** 2
+        return int(max(1, min(n_src * k, math.ceil(4 * n_src * per_src))))
+
+    return cap(p, spec.level0), cap(k, spec.level1)
 
 
 def grid_cells(xyz, mask, level: LevelSpec, origin=None):

@@ -23,13 +23,19 @@ the two-level graph, runs the network, softmax, the hypothesis mask,
 top-k and the box decode; the host then folds the vertical classes and
 runs merge-NMS.
 
+On the card the device program of device-built graphs has no host sync
+(K1's pair lists have a capacity and keep their counts on the card) and
+is replayed as one CUDA graph (``InferencePipeline.device_fn``).
+
 Stage times go into ``time_dict`` under the JAX pipeline's bucket names;
-the native NMS loop's pair counts go into ``nms_counters``.
+the native NMS loop's pair counts go into ``nms_counters``, K1's pairs
+per call into ``k1_counters``.
 """
 
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import os
 import threading
 import time
@@ -48,6 +54,8 @@ from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import pad
 from pointgnn_tpu_torch.model import encodings
 from pointgnn_tpu_torch.model.pointgnn import get_model
+from pointgnn_tpu_torch.nn import cuda_build
+from pointgnn_tpu_torch.nn import slab as slab_ops
 from pointgnn_tpu_torch.parallel import mesh as mesh_lib
 from pointgnn_tpu_torch.postprocess import iou as iou_lib
 from pointgnn_tpu_torch.postprocess import nms as nms_lib
@@ -185,6 +193,32 @@ def _mesh_devices(mesh) -> List[torch.device]:
         "a list of devices, got %s" % type(mesh).__name__)
 
 
+class _Staging:
+    """Two pinned host buffers that carry packed frames to one CUDA
+    device: a frame is copied into the next buffer (once the copy to the
+    card that last read it has finished, two frames ago) and from there
+    to the card without waiting for it.  Pinning a buffer per frame costs
+    milliseconds of the host's time; torch's CPU copy into the buffer
+    would wake its intra-op threads, which then spin on the host's cores,
+    so numpy copies, in the calling thread.  One thread uses it."""
+
+    def __init__(self, like, device):
+        self.device = device
+        self.bufs = [torch.empty_like(like, pin_memory=True) for _ in (0, 1)]
+        self.copied = [None, None]  # the event after each buffer's copy
+        self.turn = 0
+
+    def __call__(self, host):
+        i, self.turn = self.turn, 1 - self.turn
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()
+        np.copyto(self.bufs[i].numpy(), host.numpy())
+        packed = self.bufs[i].to(self.device, non_blocking=True)
+        self.copied[i] = torch.cuda.Event()
+        self.copied[i].record()
+        return packed
+
+
 def _tree_to(tree, device):
     """A copy of a parameter tree on ``device``."""
     if isinstance(tree, dict):
@@ -235,6 +269,41 @@ def slab_tuning_levels(slab_tuning: Optional[Dict]):
     return tuple(
         pick(tuning[key], "[%r]" % key) if key in tuning else flat
         for key in ("level0", "level1"))
+
+
+class _GraphedProgram:
+    """A device program captured as one CUDA graph, following PyTorch's
+    recipe: after an eager warm-up call, captured on a side stream from a
+    fixed input buffer into fixed output buffers.  A call copies a frame
+    into the input, replays the graph on the current stream and returns
+    copies of the outputs, so a later replay cannot overwrite what a
+    caller holds.  Each replay adds the captured kernel launches to their
+    wrappers' launch counters."""
+
+    def __init__(self, program, params, packed):
+        dev = packed.device
+        self.params = params  # the graph reads them where they are
+        self.packed = packed.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_build.capture_tally() as self.launches, \
+                torch.cuda.device(dev), torch.cuda.graph(
+                    self.graph, stream=torch.cuda.Stream(dev),
+                    capture_error_mode="thread_local"):
+            self.outs, self.k1 = program(params, self.packed)
+
+    def fits(self, packed):
+        return (packed.shape == self.packed.shape
+                and packed.dtype == self.packed.dtype
+                and packed.device == self.packed.device)
+
+    def __call__(self, packed):
+        self.packed.copy_(packed, non_blocking=True)
+        self.graph.replay()
+        for fn, n in self.launches.items():
+            fn.launches += n
+        outs = tuple(o.clone() for o in self.outs)
+        k1 = None if self.k1 is None else (self.k1[0].clone(), self.k1[1])
+        return outs, k1
 
 
 class InferencePipeline:
@@ -350,12 +419,16 @@ class InferencePipeline:
                     "slab_tuning %r tunes slab_edge_max at a level this "
                     "pipeline does not run it on (slab=%r)"
                     % (slab_tuning, self.slab))
+            # K1's pair lists at a capacity: no host sync in device_fn
+            cap0, cap1 = db.k1_pair_capacities(self.device_spec)
             if runs[1]:
                 slab_level1 = dict(
-                    db.slab_kernel_wiring(self.device_spec.level1), **t_l1)
+                    db.slab_kernel_wiring(self.device_spec.level1), **t_l1,
+                    pair_capacity=cap1)
             if runs[0]:
                 slab_level0 = dict(
-                    db.slab_kernel_wiring(self.device_spec.level0), **t_l0)
+                    db.slab_kernel_wiring(self.device_spec.level0), **t_l0,
+                    pair_capacity=cap0)
             if edge_chunks is None:
                 edge_chunks = 8  # bound the segment path's edge rows
         else:
@@ -402,9 +475,22 @@ class InferencePipeline:
         self.time_dict: Dict[str, float] = {}
         self._time_lock = threading.Lock()  # stream() times off-thread
         self.overflow_counters: Dict[str, int] = {}
+        if slab_level0 or slab_level1:
+            # frames recomputed on exact K1 pair lists (past a capacity)
+            self.overflow_counters["k1_pairs"] = 0
         # the native NMS loop's pair counts (native.greedy_nms)
         self.nms_counters: Dict[str, int] = {}
+        # K1's pairs per call of the device program, read a frame late
+        # (:meth:`_count_k1`)
+        self.k1_counters: Dict[str, int] = {}
         self.frames_done = 0
+        # the CUDA graph of the device program by (device, id(params)),
+        # under the lock: None before the second call, False where
+        # capture failed; and each thread's pinned staging buffers
+        self._graphs: Dict[Tuple[str, int], object] = {}
+        self._graph_lock = threading.Lock()
+        self._staging = threading.local()
+        self._last_k1 = threading.local()  # device_fn's K1 counts, per thread
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -412,8 +498,126 @@ class InferencePipeline:
         """Fused: unpack -> graph build -> GNN -> softmax -> hypothesis
         mask -> top-k -> box decode.  Returns ``(scores, classes,
         boxes, xyz)`` of the top ``max_hypotheses`` hypotheses; masked
-        ones carry score -1."""
-        model, num_classes = self.model, self.num_classes
+        ones carry score -1.
+
+        Nothing in it waits for the card: K1 builds its pair lists at
+        the capacities of :func:`~pointgnn_tpu_torch.graph.device_builder.
+        k1_pair_capacities` and leaves their counts on the card.  The
+        call's counts (or None where no K1 call runs) are left for
+        :meth:`_take_k1` in this thread.  So the outputs are valid only
+        once those counts, read to the host, show no call past its
+        capacity (:meth:`_count_k1` returns False); otherwise a pair list
+        was cut, and :meth:`_exact_outputs` gives the frame's outputs, as
+        ``run_frame`` and ``stream`` do.  On a CUDA device the slab and edge-list programs run
+        as one CUDA graph per device and params, captured after the
+        first call (which runs eagerly, as on the CPU): a call copies
+        ``packed`` into the graph's input, replays it and returns copies
+        of its outputs."""
+        runner = self._graph_for(params, packed)
+        if runner is None:
+            outs, k1 = self._program(params, packed)
+        else:
+            outs, k1 = runner(packed)
+        self._last_k1.value = k1
+        return outs
+
+    def _take_k1(self):
+        """The K1 counts of this thread's last :meth:`device_fn` call."""
+        k1, self._last_k1.value = getattr(self._last_k1, "value", None), None
+        return k1
+
+    def _program(self, params, packed):
+        """The device program, eagerly: ``(outputs, k1)``, ``k1`` being
+        ``(counts [calls] int32 on the device, capacities)`` of the K1
+        calls, or None where none ran at a capacity."""
+        with slab_ops.pair_counts() as log:
+            outs = self._device_outputs(self.model, params, packed)
+        if not log:
+            return outs, None
+        return outs, (torch.cat([c for c, _ in log]),
+                      tuple(cap for _, cap in log))
+
+    def _graph_for(self, params, packed):
+        """The CUDA graph of the program on ``packed``'s device with
+        ``params``, captured here at the second call for them; None where
+        the program runs eagerly: the first call, off the card, on the
+        segment path (whose ops sync), or where capture failed."""
+        if (packed.device.type != "cuda" or not self.on_device_graph
+                or not (self.slab or self.pallas_tail)):
+            return None
+        key = (str(packed.device), id(params))
+        with self._graph_lock:
+            if key not in self._graphs:
+                self._graphs[key] = None  # the first call: eager
+                return None
+            runner = self._graphs[key]
+            if runner is None:
+                try:
+                    runner = _GraphedProgram(self._program, params, packed)
+                except RuntimeError as e:
+                    warnings.warn("the device program runs eagerly on %s: "
+                                  "CUDA graph capture failed (%s)"
+                                  % (packed.device, e), RuntimeWarning)
+                    runner = False
+                self._graphs[key] = runner
+        return runner if runner and runner.fits(packed) else None
+
+    def _to_device(self, host, device):
+        """A packed host frame on ``device``: on a CUDA device through
+        this thread's :class:`_Staging` for it, with no wait for the
+        card."""
+        if device.type != "cuda":
+            return host.to(device)
+        by_device = self._staging.__dict__.setdefault("by_device", {})
+        if str(device) not in by_device:
+            by_device[str(device)] = _Staging(host, device)
+        return by_device[str(device)](host)
+
+    def _drop_graphs(self, params_list):
+        """Forget the CUDA graphs captured for ``params_list``."""
+        ids = {id(p) for p in params_list}
+        with self._graph_lock:
+            for key in [k for k in self._graphs if k[1] in ids]:
+                del self._graphs[key]
+
+    def _count_k1(self, k1) -> bool:
+        """Adds one frame's K1 counts (``k1`` as :meth:`_program` gives
+        it, the counts read to the host) to ``k1_counters`` (per call:
+        ``call<i>_pairs`` summed over frames, ``call<i>_peak`` the most
+        in a frame, ``call<i>_capacity``); True where a call's count
+        passed its capacity, so its pair list was cut."""
+        if k1 is None:
+            return False
+        counts, caps = k1
+        c = self.k1_counters
+        c["frames"] = c.get("frames", 0) + 1
+        over = False
+        for i, (n, cap) in enumerate(zip(counts.tolist(), caps)):
+            c["call%d_pairs" % i] = c.get("call%d_pairs" % i, 0) + n
+            c["call%d_peak" % i] = max(c.get("call%d_peak" % i, 0), n)
+            c["call%d_capacity" % i] = cap
+            over |= n > cap
+        return over
+
+    @torch.inference_mode()
+    def _exact_outputs(self, params, packed):
+        """The device program of a frame whose K1 pair list passed its
+        capacity, run by a copy of the model whose K1 wiring has no
+        capacity (exact pair lists, a host sync per call), read to the
+        host; counted in ``overflow_counters["k1_pairs"]``."""
+        exact = copy.copy(self.model)
+        for attr in ("slab_level0", "slab_level1"):
+            wiring = getattr(exact, attr)
+            if wiring is not None:
+                setattr(exact, attr, {k: v for k, v in wiring.items()
+                                      if k != "pair_capacity"})
+        outs = self._device_outputs(exact, params, packed)
+        self.overflow_counters["k1_pairs"] += 1
+        return tuple(o.cpu() for o in outs)
+
+    def _device_outputs(self, model, params, packed):
+        """The body of :meth:`device_fn`, with ``model``."""
+        num_classes = self.num_classes
         points_xyz, features, mask = db.unpack_points(packed)
         graph = db.build_padded_graph(
             points_xyz, features, mask, self.device_spec
@@ -483,17 +687,13 @@ class InferencePipeline:
         return pad.pad_frame(frame, self.capacity)
 
     # ------------------------------------------------------------------
-    def _overflow_stats(self, points: Points) -> Dict[str, int]:
-        """Host-computable capacity-overflow stats for one frame.  Pure
-        (no shared state, no warnings), so ``stream``'s background
-        worker may call it."""
-        return db.host_overflow_stats(points.xyz, self.device_spec)
-
-    def _apply_overflow_stats(self, stats: Dict[str, int], stacklevel=3):
-        """Accumulate ``stats`` into ``overflow_counters`` and warn on
-        keypoint drop.  Main thread only: ``warnings`` filter contexts
-        are not thread-safe, so an off-thread warning could escape the
-        caller's filters."""
+    def _pack(self, points: Points):
+        """A frame's host side before the card: its capacity-overflow
+        stats (``db.host_overflow_stats``) added to ``overflow_counters``,
+        with a warning on keypoint drop that points at the caller of
+        ``run_frame`` (or of ``next`` on ``stream``), and the packed
+        frame as a CPU tensor."""
+        stats = db.host_overflow_stats(points.xyz, self.device_spec)
         for key, val in stats.items():
             self.overflow_counters[key] = (
                 self.overflow_counters.get(key, 0) + int(val)
@@ -506,12 +706,13 @@ class InferencePipeline:
                 % (stats["voxels_occupied"], self.device_spec.num_keypoints,
                    stats["keypoints_dropped"]),
                 RuntimeWarning,
-                stacklevel=stacklevel,
+                stacklevel=3,
             )
-
-    def _account_overflow(self, points: Points):
-        # stacklevel 4: the warning points at run_frame's caller
-        self._apply_overflow_stats(self._overflow_stats(points), stacklevel=4)
+        return torch.from_numpy(db.pack_points(
+            points.xyz,
+            select_input_features(points.attr, self.input_features),
+            self.device_spec.num_points,
+        ))
 
     def _add_time(self, bucket, seconds):
         with self._time_lock:
@@ -529,17 +730,14 @@ class InferencePipeline:
             return self._run_host_frame(
                 points, rng or np.random.default_rng(0))
         t0 = time.time()
-        self._account_overflow(points)
-        packed = db.pack_points(
-            points.xyz,
-            select_input_features(points.attr, self.input_features),
-            self.device_spec.num_points,
-        )
-        packed = torch.from_numpy(packed).to(self.device)
+        packed = self._to_device(self._pack(points), self.device)
         t1 = time.time()
         self._add_time("gen graph", t1 - t0)
-        outs = self.device_fn(self.params, packed)
-        scores, sel_cls, sel_boxes, sel_xyz = (t.cpu().numpy() for t in outs)
+        outs = tuple(t.cpu() for t in self.device_fn(self.params, packed))
+        k1 = self._take_k1()
+        if k1 is not None and self._count_k1((k1[0].cpu(), k1[1])):
+            outs = self._exact_outputs(self.params, packed)
+        scores, sel_cls, sel_boxes, sel_xyz = (t.numpy() for t in outs)
         t2 = time.time()
         self._add_time("gnn inference", t2 - t1)
         result = self._finish_frame(scores, sel_cls, sel_boxes, sel_xyz)
@@ -624,19 +822,26 @@ class InferencePipeline:
         without the host NMS tail).
 
         One background worker advances ``frames`` (the dataset IO),
-        computes each frame's overflow stats and packs it, ``depth``
-        frames ahead.  The main thread applies the stats, copies the
-        packed frame to the device, runs ``device_fn``, starts copying
-        its outputs back, and runs the host NMS of the previous frame
-        while the card finishes the current one.  The card cannot run
-        far ahead: ``slab_edge_max`` reads its pair count on the host,
-        so ``device_fn`` waits for the card partway through each frame.
+        ``depth`` frames ahead.  The main thread computes each frame's
+        overflow stats and packs it (on the worker, its numpy work and
+        the main thread's took turns at the interpreter lock and slowed
+        both), starts copying the packed frame to the device through
+        pinned memory, runs
+        ``device_fn`` (a CUDA graph replay on the card), starts copying
+        its outputs and K1's pair counts back, and runs the host NMS of
+        the previous frame while the card runs the current one: nothing
+        before the NMS waits for the card, so the card computes frame i
+        while the host finishes frame i - 1.  Frame i's counts are read
+        with its outputs; a frame whose K1 pair list passed its capacity
+        is computed again on exact pair lists (``_exact_outputs``)
+        before its NMS.
 
         ``mesh`` (a :class:`~pointgnn_tpu_torch.parallel.mesh.Mesh`, whose
         ``devices`` serve, or a list of devices) serves data-parallel, as
         the JAX pipeline's ``stream(mesh=...)`` does: every device gets
-        its own copy of the params and a thread that copies frames in,
-        runs ``device_fn`` and starts copying outputs back; each serving
+        its own copy of the params (so a CUDA graph of its own, captured
+        in its thread) and a thread that copies frames in, runs
+        ``device_fn`` and starts copying outputs back; each serving
         batch of ``batch`` frames is dealt out as ``batch / len(mesh)``
         consecutive frames per device (``batch`` must divide), with no
         communication between devices.  The main thread runs the host
@@ -645,8 +850,8 @@ class InferencePipeline:
         while ``device_fn`` here runs one frame at a time and a packed
         frame's copy to the card is small.
 
-        Buckets: ``gen graph`` (stats and packing on the worker, the copy
-        to the device), ``gnn inference`` (``device_fn`` and the wait for
+        Buckets: ``gen graph`` (stats, packing and the copy to the
+        device), ``gnn inference`` (``device_fn`` and the wait for
         its outputs), ``nms``.  Device-built graphs only, as in JAX."""
         if not self.on_device_graph:
             raise ValueError("stream() needs on_device_graph")
@@ -657,43 +862,42 @@ class InferencePipeline:
         it = iter(frames)
 
         def pull():
-            # the background worker: dataset IO, stats and packing
+            # the background worker: the next frame (the dataset IO)
             for p in it:
-                t0 = time.time()
-                stats = self._overflow_stats(p)
-                host = torch.from_numpy(db.pack_points(
-                    p.xyz, select_input_features(p.attr, self.input_features),
-                    self.device_spec.num_points,
-                ))
-                return host, stats, time.time() - t0
+                return p
             return None
 
         def run(params, host, device):
             """Copy one frame in, run ``device_fn`` and start copying its
-            outputs to the host."""
+            outputs and K1 counts to the host."""
             with torch.cuda.device(device) if device.type == "cuda" \
                     else contextlib.nullcontext():
                 t0 = time.time()
-                packed = host.to(device)
+                packed = self._to_device(host, device)
                 t1 = time.time()
                 self._add_time("gen graph", t1 - t0)
                 outs = self.device_fn(params, packed)
+                k1 = self._take_k1()
                 done = None
                 if device.type == "cuda":
                     outs = tuple(o.to("cpu", non_blocking=True)
                                  for o in outs)
+                    if k1 is not None:
+                        k1 = (k1[0].to("cpu", non_blocking=True), k1[1])
                     done = torch.cuda.Event()
                     done.record()
                 self._add_time("gnn inference", time.time() - t1)
-            return outs, done
+            return outs, k1, done, (params, packed)
 
         def finish(entry):
             t0 = time.time()
             if isinstance(entry, concurrent.futures.Future):
                 entry = entry.result()
-            outs, done = entry
+            outs, k1, done, (params, packed) = entry
             if done is not None:
                 done.synchronize()
+            if self._count_k1(k1):
+                outs = self._exact_outputs(params, packed)
             row = tuple(o.numpy() for o in outs)
             t1 = time.time()
             self._add_time("gnn inference", t1 - t0)
@@ -715,10 +919,13 @@ class InferencePipeline:
             else:
                 lag = batch
                 per = batch // len(devices)
+                copies = [_tree_to(self.params, d) for d in devices]
+                # their CUDA graphs go with them, once the workers are done
+                stack.callback(self._drop_graphs, copies)
                 replicas = [
-                    (_tree_to(self.params, d), d, stack.enter_context(
+                    (params, d, stack.enter_context(
                         concurrent.futures.ThreadPoolExecutor(1)))
-                    for d in devices
+                    for params, d in zip(copies, devices)
                 ]
 
                 def submit(i, host):
@@ -731,13 +938,13 @@ class InferencePipeline:
             pending = collections.deque()
             count = 0
             while pulls:
-                res = pulls.popleft().result()
-                if res is None:
+                p = pulls.popleft().result()
+                if p is None:
                     continue
                 pulls.append(pool.submit(pull))
-                host, stats, gen_s = res
-                self._apply_overflow_stats(stats)
-                self._add_time("gen graph", gen_s)
+                t0 = time.time()
+                host = self._pack(p)
+                self._add_time("gen graph", time.time() - t0)
                 pending.append(submit(count, host))
                 count += 1
                 while len(pending) > lag:
@@ -857,4 +1064,13 @@ class InferencePipeline:
                 print("%s: %.3f ms/frame" % (k, 1e3 * v))
             for k, v in self.nms_counters.items():
                 print("nms %s: %.1f/frame" % (k, v / max(self.frames_done, 1)))
+            k1_frames = max(self.k1_counters.get("frames", 0), 1)
+            for k, v in self.k1_counters.items():
+                if k.endswith("_pairs"):
+                    print("k1 %s: %.1f/frame" % (k, v / k1_frames))
+                elif k != "frames":
+                    print("k1 %s: %d" % (k, v))
+            if "k1_pairs" in self.overflow_counters:
+                print("k1 overflow redos: %d"
+                      % self.overflow_counters["k1_pairs"])
         return averages

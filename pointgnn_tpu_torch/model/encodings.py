@@ -76,6 +76,8 @@ _VOXELNET_FLAT_ACTIVE = np.zeros((4,), dtype=bool)
 for _id, _name in ((2, "Car"), (1, "Pedestrian"), (3, "Pedestrian")):
     _VOXELNET_FLAT_SIZES[_id] = _VOXELNET_SIZES[_name]
     _VOXELNET_FLAT_ACTIVE[_id] = True
+_VOXELNET_FLAT_TABLES = (_VOXELNET_FLAT_SIZES, np.zeros(4),
+                         _VOXELNET_FLAT_ACTIVE)
 
 
 # classaware voxelnet: a fixed 8-id table
@@ -105,12 +107,20 @@ def classaware_decode(cls_ids, points_xyz, encoded, tables):
     return torch.cat([xyz, lhw, yaw[:, None]], dim=-1)
 
 
+# (id of a class table, device) -> (the table, its tensors there): each
+# table is copied to a device once, not on every decode (a host sync)
+_device_tables = {}
+
+
 def _class_lookup(cls_ids, tables, device):
-    sizes, yaw_offset, active = tables
-    sizes = torch.as_tensor(sizes, dtype=torch.float32, device=device)
-    yaw_offset = torch.as_tensor(yaw_offset, dtype=torch.float32,
-                                 device=device)
-    active = torch.as_tensor(active, device=device)
+    key = (id(tables), str(device))
+    if key not in _device_tables:
+        sizes, yaw_offset, active = tables
+        _device_tables[key] = (tables, (
+            torch.as_tensor(sizes, dtype=torch.float32, device=device),
+            torch.as_tensor(yaw_offset, dtype=torch.float32, device=device),
+            torch.as_tensor(active, device=device)))
+    sizes, yaw_offset, active = _device_tables[key][1]
     ids = torch.clamp(cls_ids.to(torch.int64), 0, sizes.shape[0] - 1)
     return sizes[ids], yaw_offset[ids], active[ids]
 
@@ -161,9 +171,8 @@ def center_decode(cls_ids, points_xyz, encoded):
 
 def voxelnet_decode(cls_ids, points_xyz, encoded):
     """Decode [N, 7] voxelnet encodings (4 flat ids, yaw times pi/2)."""
-    sz, _, act = _class_lookup(
-        cls_ids, (_VOXELNET_FLAT_SIZES, np.zeros(4), _VOXELNET_FLAT_ACTIVE),
-        encoded.device)
+    sz, _, act = _class_lookup(cls_ids, _VOXELNET_FLAT_TABLES,
+                               encoded.device)
     xyz = torch.where(act[:, None], encoded[:, 0:3] * sz, encoded[:, 0:3])
     xyz = xyz + points_xyz
     lhw = torch.where(

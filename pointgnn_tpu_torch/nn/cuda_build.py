@@ -12,12 +12,14 @@ entry point's argument types.
 once, and waits for them together.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,6 +45,7 @@ MAX_LAYERS = 8  # slab::kMaxLayers in csrc/slab_chain.cuh
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 _loaded = {}  # library path -> ctypes library (one load per process)
 _entries = {}  # (kernel name, symbol) -> loaded C entry point
+_tallies = threading.local()  # count_launch's tally of a graph capture
 
 
 def local_headers(source):
@@ -138,6 +141,31 @@ def kernel_entry(name, symbol, argtypes):
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return _entries[key]
+
+
+def count_launch(fn):
+    """Count one launch of the kernel wrapper ``fn`` in ``fn.launches``;
+    inside :func:`capture_tally` in this thread, in the tally instead (a
+    captured launch runs when, and as often as, its CUDA graph
+    replays)."""
+    tally = getattr(_tallies, "counts", None)
+    if tally is None:
+        fn.launches += 1
+    else:
+        tally[fn] = tally.get(fn, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Yields ``{wrapper: launches}`` of the kernel launches that this
+    thread makes inside the block, which leave ``.launches`` as it is:
+    the launches of a captured CUDA graph, added at each replay."""
+    outer = getattr(_tallies, "counts", None)
+    _tallies.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _tallies.counts = outer
 
 
 def flat_chain(weights, compute_dtype, device, transpose=False):

@@ -311,7 +311,7 @@ def edge_tail_max(
     _require(name, dev.type == "cuda", "unsupported device %s" % dev)
     out = _tail_on_card(name, gathered, table_b, slot_valid, None, weights,
                         cd, apply_act_first)
-    edge_tail_max.launches += 1
+    cuda_build.count_launch(edge_tail_max)
     return out
 
 
@@ -344,7 +344,7 @@ def fused_edge_max(
     _require(name, dev.type == "cuda", "unsupported device %s" % dev)
     out = _tail_on_card(name, table_a, table_b, slot_valid, edges_src,
                         weights, cd, apply_act_first)
-    fused_edge_max.launches += 1
+    cuda_build.count_launch(fused_edge_max)
     return out
 
 

@@ -174,8 +174,11 @@ def _folded_tables(first, features, src_xyz, ctr_xyz, compute_dtype):
 def _slab_agg(tail, table_a, src4, table_b, ctr4, slab, compute_dtype):
     cd = mlp.as_compute_dtype(compute_dtype) or torch.float32
     weights = [(layer["w"], layer["b"]) for layer in tail]
-    fn = (slab_ops.slab_edge_max_train if slab.get("train")
-          else slab_ops.slab_edge_max)
+    if slab.get("train"):
+        fn, extra = slab_ops.slab_edge_max_train, {}
+    else:
+        fn = slab_ops.slab_edge_max
+        extra = dict(pair_capacity=slab.get("pair_capacity"))
     return fn(
         table_a, src4, table_b, ctr4,
         slab["offsets"], slab["center_cell"], weights,
@@ -184,6 +187,7 @@ def _slab_agg(tail, table_a, src4, table_b, ctr4, slab, compute_dtype):
         compute_dtype=str(cd).replace("torch.", ""),
         block_centers=slab.get("block_centers",
                                slab_ops.DEFAULT_BLOCK_CENTERS),
+        **extra,
     )
 
 

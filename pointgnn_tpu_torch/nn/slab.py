@@ -25,7 +25,10 @@ On a CUDA tensor :func:`slab_edge_max` launches the hand-written kernels
 first build the pair list (:func:`pair_list`: every in-radius pair,
 grouped by center) and then run the chain over chunks of
 :data:`PAIR_CHUNK` pairs spread evenly over the SMs, so a crowded center
-block does not hold up the call (:func:`pair_chunks`).
+block does not hold up the call (:func:`pair_chunks`).  Serving gives
+each call a ``pair_capacity``: the list is built at that length and its
+count stays on the card, collected by :func:`pair_counts`, so no call
+waits for its pair count on the host.
 
 Training: :func:`slab_edge_max_train` is the differentiable version (the
 counterpart of the JAX ``slab_edge_max_train`` custom VJP).  Its forward
@@ -41,7 +44,9 @@ metadata get no gradient.  Both kernels take their chain arithmetic from
 bit for bit.
 """
 
+import contextlib
 import ctypes
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -193,6 +198,15 @@ def slab_edge_max_reference(
     (gather the candidate rows of the same windows, exact distance
     mask), the chain only on the in-radius pairs with the same rounding
     points, and a ``scatter_reduce("amax")`` from ``NEG``."""
+    return _reference_forward(
+        table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell, weights,
+        grid_g, radius, halo, compute_dtype, block_centers, pair_chunk)[0]
+
+
+def _reference_forward(table_a, src_xyz, table_b, ctr_xyz, offsets,
+                       center_cell, weights, grid_g, radius, halo,
+                       compute_dtype, block_centers, pair_chunk=1 << 17):
+    """:func:`slab_edge_max_reference`'s output and its pair count."""
     k, h = table_b.shape[0], table_a.shape[1]
     h_out = _chain_out_dim(weights, h)
     win_lo, win_hi = column_row_windows(
@@ -202,13 +216,16 @@ def slab_edge_max_reference(
                                     compute_dtype)
     out = torch.full((k, h_out), NEG, dtype=torch.float32,
                      device=table_a.device)
+    n_pairs = 0
     for kc, jc in _pair_chunks(src_xyz, ctr_xyz, win_lo, win_hi,
                                block_centers, radius, pair_chunk):
+        n_pairs += kc.numel()
         x = _chain_acts(a, b, chain, kc, jc, compute_dtype)[-1]
         out.scatter_reduce_(
             0, kc[:, None].expand(-1, h_out), x, "amax", include_self=True,
         )
-    return torch.where(out > NEG / 2, out, torch.zeros((), device=out.device))
+    out = torch.where(out > NEG / 2, out, torch.zeros((), device=out.device))
+    return out, n_pairs
 
 
 def _rounded_operands(table_a, table_b, weights, compute_dtype):
@@ -323,13 +340,25 @@ def pair_list_reference(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
             jj.to(torch.int32))
 
 
-def pair_list(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
+def pair_list(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius, capacity=None):
     """The CSR pair list of :func:`pair_list_reference`.  On a CUDA
     tensor two kernels build it (``slab_pairs_launch`` in
     ``csrc/slab_edge_max.cu``: a count pass, ``torch.cumsum``, a write
     pass), so its order is the same on every run; on a CPU tensor it is
-    the plain version."""
+    the plain version, always exact.
+
+    Without ``capacity`` the list is sized to its pairs: the host reads
+    the count ``row_ptr[K]`` between the passes, a sync, and ``pair_k`` /
+    ``pair_j`` hold exactly the pairs.  With ``capacity`` (CUDA only)
+    they are allocated at that length before the count is known and only
+    their first ``min(row_ptr[K], capacity)`` slots are written, so
+    nothing waits for the card; ``row_ptr`` is exact all the same, and a
+    count above the capacity means the list was cut (the caller reads the
+    count later and recomputes what used the list)."""
     if src_xyz.device.type == "cpu":
+        if capacity is not None:
+            raise ValueError("pair_list: a capacity bounds the kernels' "
+                             "list; the plain version is always exact")
         return pair_list_reference(src_xyz, ctr_xyz, win_lo, win_hi, bk,
                                    radius)
     dev = src_xyz.device
@@ -344,8 +373,8 @@ def pair_list(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
         rc = entry(src_xyz.data_ptr(), ctr_xyz.data_ptr(),
                    win_lo.data_ptr(), win_hi.data_ptr(), counts.data_ptr(),
                    row_ptr.data_ptr(), pair_k.data_ptr(), pair_j.data_ptr(),
-                   k, grid_g, bk, _radius2(radius), write, dev.index or 0,
-                   stream)
+                   k, grid_g, bk, _radius2(radius), write, pair_k.numel(),
+                   dev.index or 0, stream)
         if rc != 0:
             raise RuntimeError("slab pair list kernel launch failed: CUDA "
                                "error %d" % rc)
@@ -353,8 +382,8 @@ def pair_list(src_xyz, ctr_xyz, win_lo, win_hi, bk, radius):
     empty = torch.zeros(1, **ints)
     run(0, empty, empty, empty)
     row_ptr = torch.zeros(k + 1, **ints)
-    row_ptr[1:] = torch.cumsum(counts[:k], 0)
-    n = int(row_ptr[-1])
+    torch.cumsum(counts[:k], 0, dtype=torch.int32, out=row_ptr[1:])
+    n = int(row_ptr[-1]) if capacity is None else capacity
     pair_k = torch.empty(max(n, 1), **ints)
     pair_j = torch.empty(max(n, 1), **ints)
     run(1, row_ptr, pair_k, pair_j)
@@ -410,11 +439,12 @@ _PAIR_ARGS = [
     _vp, _vp, _vp, _vp,          # src_xyz, ctr_xyz, win_lo, win_hi
     _vp, _vp, _vp, _vp,          # counts, row_ptr, pair_k, pair_j
     _ci, _ci, _ci, _cf, _ci,     # K, grid_g, bk, r^2, write
+    _ci,                         # capacity (slots written at most)
     _ci, _vp,                    # device index, stream
 ]
 _FWD_ARGS = [
     _vp, _vp, _vp, _vp, _ci,     # table_a, table_b, weights^T, table, L
-    _vp, _vp, _ci,               # pair_k, pair_j, pairs
+    _vp, _vp, _ci, _vp,          # pair_k, pair_j, list length, count or 0
     _vp, _ci, _ci, _ci,          # out, H, H_out, bf16
     _ci, _vp,                    # device index, stream
 ]
@@ -474,7 +504,7 @@ def _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
 
 
 def _cuda_pairs(table_a, src_xyz, ctr_xyz, offsets, center_cell, grid_g,
-                radius, halo, block_centers, name):
+                radius, halo, block_centers, name, capacity=None):
     if table_a.device.type != "cuda":
         raise ValueError("%s: unsupported device %s"
                          % (name, table_a.device))
@@ -482,7 +512,30 @@ def _cuda_pairs(table_a, src_xyz, ctr_xyz, offsets, center_cell, grid_g,
         offsets, center_cell, grid_g, block_centers, halo
     )
     return pair_list(src_xyz, ctr_xyz, win_lo, win_hi, block_centers,
-                     radius)
+                     radius, capacity)
+
+
+_counted = threading.local()
+
+
+@contextlib.contextmanager
+def pair_counts():
+    """Collects the pair counts of the :func:`slab_edge_max` calls this
+    thread makes with a ``pair_capacity`` inside the block: each appends
+    ``(count, capacity)`` to the list this yields, ``count`` a
+    one-element int32 tensor on the call's device holding the call's
+    in-radius pairs, to be read whenever the caller likes.  A count above
+    its capacity means the call's list was cut and its output is wrong:
+    the caller must recompute it without a capacity.  A call with a
+    capacity outside any block raises, since nothing would see its
+    count.  Calls without one are exact (the host waits for their count)
+    and log nothing."""
+    outer = getattr(_counted, "log", None)
+    _counted.log = log = []
+    try:
+        yield log
+    finally:
+        _counted.log = outer
 
 
 def slab_edge_max(
@@ -498,39 +551,62 @@ def slab_edge_max(
     halo: int = 1,
     compute_dtype="bfloat16",
     block_centers: int = DEFAULT_BLOCK_CENTERS,
+    pair_capacity=None,
 ):
     """Fused uncapped radius search + edge MLP + per-center max;
     returns [K, H_out] float32.  ``compute_dtype`` is "bfloat16" (the
-    serving path) or "float32" (f32-accurate products)."""
+    serving path) or "float32" (f32-accurate products).
+    ``pair_capacity`` (a positive int; the serving path) bounds the pair
+    list and keeps its count on the device, where the call logs it into
+    the enclosing :func:`pair_counts` block (the plain version on a CPU
+    tensor is never cut, and logs its count all the same); without it the
+    list is exact, which syncs."""
     weights = [tuple(wb) for wb in weights]
     _check_inputs(table_a, src_xyz, table_b, ctr_xyz, offsets,
                   center_cell, weights, grid_g)
+    log = None
+    if pair_capacity is not None:
+        _require(isinstance(pair_capacity, int) and pair_capacity > 0,
+                 "pair_capacity must be a positive int")
+        log = getattr(_counted, "log", None)
+        _require(log is not None, "a pair_capacity needs a pair_counts() "
+                 "block in this thread to collect the count that says "
+                 "whether the list was cut")
     if table_a.device.type == "cpu":
-        return slab_edge_max_reference(
+        out, n = _reference_forward(
             table_a, src_xyz, table_b, ctr_xyz, offsets, center_cell,
             weights, grid_g, radius, halo, compute_dtype, block_centers,
         )
+        if log is not None:
+            log.append((torch.tensor([n], dtype=torch.int32), pair_capacity))
+        return out
     cd = _compute_dtype_name(compute_dtype)
-    _, pair_k, pair_j = _cuda_pairs(table_a, src_xyz, ctr_xyz, offsets,
-                                    center_cell, grid_g, radius, halo,
-                                    block_centers, "slab_edge_max")
+    row_ptr, pair_k, pair_j = _cuda_pairs(
+        table_a, src_xyz, ctr_xyz, offsets, center_cell, grid_g, radius,
+        halo, block_centers, "slab_edge_max",
+        None if log is None else pair_capacity)
     k, h = table_b.shape
     h_out = _chain_out_dim(weights, h)
     flat_t, meta_host, _ = cuda_build.flat_chain(weights, cd, table_a.device,
                                                  transpose=True)
     out = torch.zeros((k, h_out), dtype=torch.float32, device=table_a.device)
     stream = torch.cuda.current_stream(table_a.device)
+    # the chain reads its count on the card where the list has a capacity
+    count = row_ptr[k:]
     rc = cuda_build.kernel_entry(
         "slab_edge_max", "slab_edge_max_launch", _FWD_ARGS)(
         table_a.data_ptr(), table_b.data_ptr(), flat_t.data_ptr(),
         ctypes.addressof(meta_host), len(weights), pair_k.data_ptr(),
-        pair_j.data_ptr(), pair_k.numel(), out.data_ptr(), h, h_out,
+        pair_j.data_ptr(), pair_k.numel(),
+        None if log is None else count.data_ptr(), out.data_ptr(), h, h_out,
         int(cd == "bfloat16"), table_a.device.index or 0, stream.cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("slab_edge_max kernel launch failed: CUDA "
                            "error %d" % rc)
-    slab_edge_max.launches += 1
+    if log is not None:
+        log.append((count, pair_capacity))
+    cuda_build.count_launch(slab_edge_max)
     return out
 
 

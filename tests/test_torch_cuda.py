@@ -19,6 +19,7 @@ from pointgnn_tpu_torch import configs
 from pointgnn_tpu_torch.data.labels import LABEL_MAP_CAR
 from pointgnn_tpu_torch.graph import device_builder as db
 from pointgnn_tpu_torch.graph import device_labels as dl
+from pointgnn_tpu_torch import infer
 from pointgnn_tpu_torch.infer import InferencePipeline
 from pointgnn_tpu_torch.model.losses import loss_config
 from pointgnn_tpu_torch.model.pointgnn import PointGNN
@@ -153,6 +154,175 @@ def test_stream_on_the_card_equals_run_frame(cuda, depth):
     for w, g in zip(want, got):
         for a, b in zip(w[:3], g[:3]):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# K1 at a capacity (no host sync) and the device program as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# frames of different sizes: (seed, points per beam)
+SIZES = [(s, ppb) for s, ppb in zip(range(8), (60, 200, 90, 160, 40, 120,
+                                                180, 75))]
+
+
+def _frame(seed, ppb):
+    return synthetic_lidar_frame(seed=seed, n_beams=32,
+                                 points_per_beam=ppb)[0]
+
+
+def _sized_graph(device, seed, ppb):
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(
+        cfg, num_points=NUM_POINTS, num_keypoints=NUM_KEYPOINTS
+    )._replace(slab_level0=True, slab_level1=True)
+    pts = _frame(seed, ppb)
+    packed = torch.from_numpy(
+        db.pack_points(pts.xyz, pts.attr[:, :1], NUM_POINTS)
+    ).to(device)
+    return spec, db.build_padded_graph(*db.unpack_points(packed), spec)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_capacity_pair_list_equals_exact_one(cuda, level):
+    """At a capacity the pair list keeps its count on the card:
+    ``row_ptr`` equals the syncing list's bitwise, and so do its pairs up
+    to the count, or up to a capacity below it."""
+    for seed, ppb in SIZES[:4]:
+        spec, graph = _sized_graph(cuda, seed, ppb)
+        kw = _call(graph, spec, level, [16, 16], cuda)
+        win = slab.column_row_windows(kw["offsets"], kw["center_cell"],
+                                      kw["grid_g"], 32, kw["halo"])
+        args = (kw["src_xyz"], kw["ctr_xyz"], *win, 32, kw["radius"])
+        row_ptr, pk, pj = slab.pair_list(*args)
+        n = pk.numel()
+        assert n > 0 and int(row_ptr[-1]) == n
+        for cap in (n + 1000, n, n // 2):
+            r, k, j = slab.pair_list(*args, capacity=cap)
+            m = min(n, cap)
+            assert k.numel() == j.numel() == cap
+            assert torch.equal(r, row_ptr)
+            assert torch.equal(k[:m], pk[:m]) and torch.equal(j[:m], pj[:m])
+
+
+@pytest.mark.parametrize("level,widths", [(0, [32, 64, 128, 300]),
+                                          (1, [300, 300])])
+def test_capacity_kernel_output_bitwise(cuda, level, widths):
+    """K1 inside ``pair_counts`` (its list at a capacity, its count read
+    on the card) equals the syncing K1 bitwise on 8 frames of different
+    sizes, and logs the exact count."""
+    for seed, ppb in SIZES:
+        spec, graph = _sized_graph(cuda, seed, ppb)
+        kw = dict(_call(graph, spec, level, widths, cuda),
+                  compute_dtype="bfloat16")
+        want = slab.slab_edge_max(**kw)
+        cap = db.k1_pair_capacities(spec)[level]
+        with slab.pair_counts() as log:
+            got = slab.slab_edge_max(**kw, pair_capacity=cap)
+        n = slab.inradius_pair_count(
+            kw["src_xyz"], kw["ctr_xyz"], kw["offsets"], kw["center_cell"],
+            kw["grid_g"], kw["radius"], kw["halo"])
+        assert [(c.item(), c_cap) for c, c_cap in log] == [(n, cap)]
+        assert n <= cap
+        assert torch.equal(got, want), (seed, ppb)
+
+
+def _car_pipe(cuda, slab_mode=True, params=None):
+    cfg = configs.model_config("Car", T=2)
+    spec = db.spec_from_config(cfg, num_points=NUM_POINTS,
+                               num_keypoints=NUM_KEYPOINTS)
+    return InferencePipeline(cfg, on_device_graph=True, device_spec=spec,
+                             device=cuda, slab=slab_mode, params=params)
+
+
+def _packed(pipe, p, device):
+    return torch.from_numpy(db.pack_points(
+        p.xyz, p.attr[:, :1], pipe.device_spec.num_points)).to(device)
+
+
+@pytest.mark.parametrize("slab_mode", [True, "l1", False])
+def test_device_fn_has_no_host_sync(cuda, slab_mode):
+    """The device program (slab, ``"l1"`` and edge lists) and its graph
+    replay run under ``set_sync_debug_mode("error")``."""
+    pipe = _car_pipe(cuda, slab_mode)
+    packed = _packed(pipe, _frame(1, 160), cuda)
+    for _ in range(2):  # the eager first call, then the capture
+        pipe.device_fn(pipe.params, packed)
+    torch.cuda.synchronize()
+    assert any(isinstance(r, infer._GraphedProgram)
+               for r in pipe._graphs.values())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            pipe._program(pipe.params, packed)
+        pipe.device_fn(pipe.params, packed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_graph_replay_equals_eager_program(cuda):
+    """The replayed graph gives the eager program's outputs and K1 counts
+    bitwise over 8 frames of different sizes, and its replays count 3 K1
+    launches each."""
+    pipe = _car_pipe(cuda)
+    checked = 0
+    for seed, ppb in SIZES + SIZES[:2]:
+        packed = _packed(pipe, _frame(seed, ppb), cuda)
+        before = slab.slab_edge_max.launches
+        got = pipe.device_fn(pipe.params, packed)
+        k1 = pipe._take_k1()
+        assert slab.slab_edge_max.launches == before + 3
+        with torch.inference_mode():
+            want, want_k1 = pipe._program(pipe.params, packed)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (seed, ppb)
+        assert torch.equal(k1[0], want_k1[0]) and k1[1] == want_k1[1]
+        checked += isinstance(pipe._graphs[(str(packed.device),
+                                            id(pipe.params))],
+                              infer._GraphedProgram)
+    assert checked == len(SIZES) + 1  # every call after the first
+
+
+def test_capacity_below_count_recomputes_on_the_card(cuda, monkeypatch):
+    """A level-1 capacity below every frame's pairs: each frame's count
+    comes back past it, the frame is computed again on exact pair lists
+    and counted once, and the detections are bitwise those of a pipeline
+    whose capacities hold every frame, through run_frame and stream."""
+    frames = [_frame(s, ppb) for s, ppb in SIZES[:4]]
+    base = _car_pipe(cuda)
+    want = [base.run_frame(p) for p in frames]
+    assert sum(len(w[0]) for w in want) > 0
+    assert base.overflow_counters["k1_pairs"] == 0
+    low = min(base.k1_counters["call1_peak"] // 4, 2000)
+    monkeypatch.setattr(db, "k1_pair_capacities",
+                        lambda spec: (10 ** 8, low))
+    for loop in ("run_frame", "stream"):
+        pipe = _car_pipe(cuda, params=base.params)
+        if loop == "stream":
+            got = list(pipe.stream(iter(frames), depth=2))
+        else:
+            got = [pipe.run_frame(p) for p in frames]
+        assert pipe.overflow_counters["k1_pairs"] == len(frames), loop
+        for w, g in zip(want, got):
+            for a, b in zip(w[:3], g[:3]):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_stream_equals_run_frame_over_frame_sizes(cuda):
+    """``stream`` (graph replays running a frame ahead of the host) yields
+    ``run_frame``'s detections frame by frame on frames of different
+    sizes, with no K1 overflow."""
+    frames = [_frame(s, ppb) for s, ppb in SIZES]
+    ref = _car_pipe(cuda)
+    want = [ref.run_frame(p) for p in frames]
+    pipe = _car_pipe(cuda, params=ref.params)
+    got = list(pipe.stream(iter(frames), depth=2))
+    assert len(got) == len(frames)
+    for w, g in zip(want, got):
+        for a, b in zip(w[:3], g[:3]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert pipe.overflow_counters["k1_pairs"] == 0
+    assert pipe.k1_counters["frames"] == len(frames)
 
 
 # The backward kernel sums the same f32 products as the plain version in

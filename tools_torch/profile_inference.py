@@ -16,11 +16,11 @@ JAX tool's keys:
   and the card's memory (CUDA only).
 
 Each stage is ``reps`` calls between two CUDA events after one warm-up
-call (wall clock on the CPU).  ``slab_edge_max`` reads its pair count on
-the host (``pointgnn_tpu_torch/nn/slab.py`` ``pair_list``), so the host
-waits for the card inside every call that runs it: these are not
-pipelined rates, as the JAX tool's are, but the time of calls issued one
-after the other.
+call (wall clock on the CPU).  No stage waits for the card
+(``slab_edge_max`` keeps its pair counts on the card, as serving runs
+it), so these are pipelined rates, as the JAX tool's are: ``total_ms``
+replays the program's CUDA graph on a card, ``graph_ms`` and ``gnn_ms``
+launch their stages' kernels from Python.
 
 Usage:
     python tools_torch/profile_inference.py [--label_method Car] [--T 3] \\
@@ -82,6 +82,7 @@ def profile(config, spec=None, reps=16, probe=True, device=None):
     from pointgnn_tpu_torch.graph import device_builder as db
     from pointgnn_tpu_torch.infer import (InferencePipeline,
                                           select_input_features)
+    from pointgnn_tpu_torch.nn import slab
     from pointgnn_tpu_torch.utils.device import resolve_device
     from pointgnn_tpu_torch.utils.synthetic import synthetic_lidar_frame
 
@@ -129,8 +130,9 @@ def profile(config, spec=None, reps=16, probe=True, device=None):
 
         graph_ms = device_rate_ms(build, packed, reps=reps, device=device)
         graph = build(packed)
-        gnn_ms = device_rate_ms(pipe.model.apply, pipe.params, graph,
-                                reps=reps, device=device)
+        with slab.pair_counts():  # K1 as serving runs it: no sync
+            gnn_ms = device_rate_ms(pipe.model.apply, pipe.params, graph,
+                                    reps=reps, device=device)
     out.update(
         total_ms=total,
         graph_ms=graph_ms,
