@@ -89,7 +89,14 @@ Drives the port (``pointgnn_tpu_torch``, never JAX) on the card:
     holds the native merge-NMS against the numpy loop in all four
     variants (classes equal, boxes within 1e-12, scores rtol 1e-7),
     printing both times; serves the tree again in-process, warm, and
-    checks that it writes the CLI's files;
+    checks that it writes the CLI's files; then serves the benchmark's
+    stream pool of car_auto_T3 and of ped_cyl_auto_T3 (64 frames and
+    the weights of seed 2718281829) with ``run_frame``: the corners the
+    native NMS loop computes against numpy's and the detections against
+    the loop handed numpy's corners, counting the values and frames that
+    are not byte-equal and holding them to those tolerances, with
+    ``nms_counters["boxes"]`` each frame's hypotheses, and times both
+    NMS tails;
 12. trains from the command line: ``train_torch.py`` in a subprocess on
     a synthetic KITTI tree (8 frames with Car, Pedestrian and Cyclist),
     car_auto_T3 at full width and depth for 4 steps (2 provider workers,
@@ -2132,7 +2139,136 @@ def kitti_cli_phase(report, device):
               "(equal: classes, boxes 1e-12, scores rtol 1e-7)"
               % (variant, row["native_ms"], row["python_ms"], row["kept"]),
               flush=True)
+    report["kitti_cli"]["pool_nms"] = pool_nms_check(device)
     return launches, k1
+
+
+POOL_NMS_SEED = 2718281829
+
+
+def _bench_json(*parts):
+    with open(os.path.join(HERE, "benchmark", *parts)) as f:
+        return json.load(f)
+
+
+def pool_nms_check(device, seed=POOL_NMS_SEED):
+    """Phase 11's host NMS on the benchmark's frames: each
+    configuration's stream pool and weights from ``seed``, every pool
+    frame served by ``run_frame``.  The corners the native loop computes
+    (``native.box_corners``) against ``core.boxes.boxes_to_corners`` on
+    each frame's hypotheses, and the served detections against the loop
+    handed numpy's corners (the loop before it computed its own), the
+    two ``_finish_frame`` calls timed in turns; ``nms_counters["boxes"]``
+    grows by the hypotheses of each frame.  Corners or detections that
+    differ are counted and held to the numpy loop's tolerances (classes
+    equal, boxes 1e-12, scores rtol 1e-7): numpy's ``cos``, ``sin`` and
+    small matrix products may round otherwise on another host."""
+    import numpy as np
+    import torch
+
+    from benchmark.core import adapter, lidar
+    from benchmark.loops import serve as bench_serve
+    from pointgnn_tpu_torch.core import boxes as box_ops
+    from pointgnn_tpu_torch.postprocess import native
+
+    inner = native.greedy_nms
+
+    def numpy_corners(boxes, corners, *rest):
+        if corners is None:
+            corners = box_ops.boxes_to_corners(boxes)
+        return inner(boxes, corners, *rest)
+
+    mix = _bench_json("traffic", "stream.json")
+    out = {}
+    for name in ("car_auto_T3", "ped_cyl_auto_T3"):
+        cfg = _bench_json("configs", name + ".json")
+        pool_np = lidar.make_pool(mix, seed)
+        weights, _ = bench_serve.run_weights(cfg, seed, device, pool_np)
+        pipe = adapter.serving_pipeline(
+            cfg, adapter.program_params(weights), device)
+        taken = []
+        device_fn = pipe.device_fn
+
+        def tap(params, packed):
+            outs = device_fn(params, packed)
+            taken.append(outs)
+            return outs
+
+        pipe.device_fn = tap
+        row = dict(frames=len(pool_np), hypotheses=[], corner_values=0,
+                   corner_values_differ=0, corner_max_abs_diff=0.0,
+                   frames_bitwise=0, boxes_counted=[], own_ms=[],
+                   numpy_corners_ms=[])
+        for xyz, attr in pool_np:
+            taken.clear()
+            boxes0 = pipe.nms_counters.get("boxes", 0)
+            served = pipe.run_frame(adapter.points(xyz, attr))
+            row["boxes_counted"].append(
+                pipe.nms_counters.get("boxes", 0) - boxes0)
+            # the last call's outputs (an overflow redo runs none)
+            scores, sel_cls, sel_boxes, sel_xyz = (
+                t.cpu().numpy() for t in taken[-1])
+            keep = scores > 0
+            row["hypotheses"].append(int(keep.sum()))
+            hyp = sel_boxes[keep].astype(np.float64)
+            want_c = box_ops.boxes_to_corners(hyp)
+            got_c = native.box_corners(hyp)
+            differ = want_c.view(np.int64) != got_c.view(np.int64)
+            row["corner_values"] += want_c.size
+            row["corner_values_differ"] += int(differ.sum())
+            if want_c.size:
+                row["corner_max_abs_diff"] = max(
+                    row["corner_max_abs_diff"],
+                    float(np.abs(want_c - got_c).max()))
+            dets = {}
+            for own in ((True, False) if len(row["own_ms"]) % 2
+                        else (False, True)):
+                native.greedy_nms = inner if own else numpy_corners
+                try:
+                    t0 = time.perf_counter()
+                    dets[own] = pipe._finish_frame(
+                        scores, sel_cls, sel_boxes, sel_xyz)
+                    ms = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    native.greedy_nms = inner
+                row["own_ms" if own else "numpy_corners_ms"].append(ms)
+            own_det, ref_det = dets[True], dets[False]
+            for a, b in zip(served[:3], own_det[:3]):
+                check(a.tobytes() == b.tobytes(),
+                      "%s: run_frame and _finish_frame differ" % name)
+            cls, boxes, sc = own_det[:3]
+            r_cls, r_boxes, r_sc = ref_det[:3]
+            check(len(cls) == len(r_cls) and (cls == r_cls).all(),
+                  "%s: own corners kept %d, numpy's %d"
+                  % (name, len(cls), len(r_cls)))
+            check(np.allclose(boxes, r_boxes, rtol=0, atol=1e-12),
+                  "%s: boxes differ by %.3g"
+                  % (name, abs(boxes - r_boxes).max()))
+            check(np.allclose(sc, r_sc, rtol=1e-7, atol=1e-9),
+                  "%s: scores differ by %.3g" % (name, abs(sc - r_sc).max()))
+            row["frames_bitwise"] += all(
+                a.tobytes() == b.tobytes()
+                for a, b in zip(own_det[:3], ref_det[:3]))
+        check(row["boxes_counted"] == row["hypotheses"],
+              "%s: nms_counters boxes %s for hypotheses %s"
+              % (name, row["boxes_counted"], row["hypotheses"]))
+        for key in ("own_ms", "numpy_corners_ms"):
+            row[key] = statistics.median(row[key])
+        out[name] = row
+        print("phase 11: %s pool (seed %d, %d frames, %d-%d hypotheses): "
+              "native corners differ from numpy's in %d of %d values (max "
+              "%.3g); detections bitwise those of numpy's corners in %d of "
+              "%d frames; _finish_frame %.3f ms, with numpy's corners %.3f "
+              "ms (medians)"
+              % (name, seed, row["frames"], min(row["hypotheses"]),
+                 max(row["hypotheses"]), row["corner_values_differ"],
+                 row["corner_values"], row["corner_max_abs_diff"],
+                 row["frames_bitwise"], row["frames"], row["own_ms"],
+                 row["numpy_corners_ms"]), flush=True)
+        del pipe, taken
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 TRAIN_CLI_FRAMES = 8

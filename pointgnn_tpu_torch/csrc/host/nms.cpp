@@ -22,13 +22,17 @@
 // rescore's sum see the same boxes in the same order as a scan of every
 // later box.
 //
-// Every value is computed by the floating-point operations that
-// cpp/graphlib/nms.cpp (the JAX package's library) uses for it, in the
-// same order; a vertex's side of a clip edge is computed once.  The
-// polygons live in fixed arrays.  Built with that library's flags (-O3
-// -march=native -std=c++17, no -ffast-math), the compiler contracts the
-// same products into FMAs and the results equal that library's bit for
-// bit.
+// The original boxes' corners: that library is handed them by its
+// caller, computed by numpy (core/boxes.py::boxes_to_corners); this loop
+// computes them itself, once per box (pgnn_box_corners), with numpy's
+// arithmetic written out as explicit fused multiply-adds, unless its
+// caller hands it corners (the quantized variant's).  Every other value
+// is computed by the floating-point operations that cpp/graphlib/nms.cpp
+// (the JAX package's library) uses for it, in the same order; a vertex's
+// side of a clip edge is computed once.  The polygons live in fixed
+// arrays.  Built with that library's flags (-O3 -march=native
+// -std=c++17, no -ffast-math), the compiler contracts the same products
+// into FMAs and the results equal that library's bit for bit.
 
 #include <algorithm>
 #include <cmath>
@@ -172,8 +176,9 @@ double pair_overlap(const double* c1, const Bounds& b1, double area1,
   return (double)(float)inter_f64 / (uni - inter_f64);
 }
 
-// boxes_to_corners for ONE box (core/boxes.py:47-75, expand=(1,1,1)),
-// used to refresh the merged box's corners for rescoring.
+// boxes_to_corners for ONE box as cpp/graphlib/nms.cpp computes it (its
+// products contracted where the compiler contracts them), used to
+// refresh the merged box's corners for rescoring.
 void box_corners(const double* b, double* out /* [24] */) {
   const double x = b[0], y = b[1], z = b[2];
   const double l = b[3], h = b[4], w = b[5], yaw = b[6];
@@ -331,23 +336,67 @@ class BevGrid {
 
 extern "C" {
 
+// core/boxes.py::boxes_to_corners (expand=(1,1,1)) of `n` boxes [n,7]
+// into `out` [n,8,3], value for value: numpy's operations in numpy's
+// order.  numpy takes the local corners (+-l/2, 0 or -h, +-w/2) times
+// yaw_rotation's transpose as a stack of small matrix products, each
+// output the sum of three products accumulated from 0.0 by fused
+// multiply-adds, then adds the center.  The fma calls are written out,
+// so the result does not depend on what the compiler contracts; it
+// equals numpy's bit for bit where numpy's cos, sin and small matrix
+// products round so.
+void pgnn_box_corners(const double* boxes, int64_t n, double* out) {
+  static const double cx[4] = {1, 1, -1, -1};
+  static const double cz[4] = {1, -1, -1, 1};
+  for (int64_t i = 0; i < n; ++i) {
+    const double* b = boxes + i * 7;
+    double* o = out + i * 24;
+    const double c = std::cos(b[6]), s = std::sin(b[6]);
+    // yaw_rotation's rows
+    const double rot[3][3] = {{c, 0.0, s}, {0.0, 1.0, 0.0}, {-s, 0.0, c}};
+    const double dh = b[4] * 0.0;  // h * (f0 - 1.0)
+    const double half_l = b[3] / 2.0, half_w = b[5] / 2.0;
+    const double face_y[2] = {dh / 2.0, -b[4] - dh / 2.0};
+    for (int k = 0; k < 8; ++k) {
+      const double local[3] = {cx[k % 4] * half_l, face_y[k / 4],
+                               cz[k % 4] * half_w};
+      for (int j = 0; j < 3; ++j) {
+        double acc = std::fma(local[0], rot[j][0], 0.0);
+        acc = std::fma(local[1], rot[j][1], acc);
+        acc = std::fma(local[2], rot[j][2], acc);
+        o[k * 3 + j] = acc + b[j];
+      }
+    }
+  }
+}
+
 // All arrays row-major.  `boxes` [n,7] sorted by decreasing score is
 // copied into `out_boxes` and mutated by merging; `scores` mutated by
-// rescoring; `keep` [n] gets 1 for survivors.  `corners` [n,8,3] are
-// the (possibly quantized) corners of the ORIGINAL boxes — the greedy
-// pair tests always use these (reference never refreshes corners after
-// a merge); only the rescore step recomputes the merged box's corners.
-// `counts` [3] gets, over the greedy loop's survivors i: the kept
-// same-class j > i (the pairs a scan of every later box tests), those
-// handed to the bounds test (after the grid), and those whose bounds
-// meet (each clipped once; the rescore's clips are not counted).
+// rescoring; `keep` [n] gets 1 for survivors.  The greedy pair tests
+// use the corners of the ORIGINAL boxes (reference never refreshes
+// corners after a merge); only the rescore step recomputes the merged
+// box's corners.  `corners` [n,8,3] gives them (the quantized variant's
+// rounded corners); null, the loop computes them itself from `boxes`
+// (pgnn_box_corners, once per box, into a buffer of its own).  `counts` [4]
+// gets, over the greedy loop's survivors i: the kept same-class j > i
+// (the pairs a scan of every later box tests), those handed to the
+// bounds test (after the grid), and those whose bounds meet (each
+// clipped once; the rescore's clips are not counted); then the boxes
+// whose corners the loop computed (n with null `corners`, else 0).
 void pgnn_nms(const double* boxes, const double* corners,
               const int64_t* classes, double* scores, int64_t n,
               double threshold, int merge, int rescore, double* out_boxes,
               uint8_t* keep, int64_t* counts) {
   std::copy(boxes, boxes + n * 7, out_boxes);
   std::fill(keep, keep + n, uint8_t{1});
-  std::fill(counts, counts + 3, int64_t{0});
+  std::fill(counts, counts + 4, int64_t{0});
+  std::vector<double> own;
+  if (corners == nullptr) {
+    own.resize(n * 24);
+    pgnn_box_corners(boxes, n, own.data());
+    corners = own.data();
+    counts[3] = n;
+  }
   if (n < 2) return;
   std::vector<Bounds> bounds(n);
   std::vector<double> area(n);

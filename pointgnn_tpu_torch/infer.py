@@ -28,8 +28,8 @@ On the card the device program of device-built graphs has no host sync
 is replayed as one CUDA graph (``InferencePipeline.device_fn``).
 
 Stage times go into ``time_dict`` under the JAX pipeline's bucket names;
-the native NMS loop's pair counts go into ``nms_counters``, K1's pairs
-per call into ``k1_counters``.
+the native NMS loop's counts (its pairs, its boxes) go into
+``nms_counters``, K1's pairs per call into ``k1_counters``.
 """
 
 import collections
@@ -478,7 +478,7 @@ class InferencePipeline:
         if slab_level0 or slab_level1:
             # frames recomputed on exact K1 pair lists (past a capacity)
             self.overflow_counters["k1_pairs"] = 0
-        # the native NMS loop's pair counts (native.greedy_nms)
+        # the native NMS loop's pair and box counts (native.greedy_nms)
         self.nms_counters: Dict[str, int] = {}
         # K1's pairs per call of the device program, read a frame late
         # (:meth:`_count_k1`)
@@ -797,9 +797,11 @@ class InferencePipeline:
             sel_labels[sel_labels == v] = v - 1
         nms_fn = nms_lib.get_nms_fn(self.use_box_merge, self.use_box_score)
         counts: Dict[str, int] = {}
+        # the boxes are gathered in the sort as they come and converted
+        # to float64 once, by the NMS
         class_labels, boxes_3d, out_scores, _ = nms_fn(
             sel_labels,
-            sel_boxes.astype(np.float64),
+            sel_boxes,
             sel_probs,
             overlapped_fn=iou_lib.overlapped_boxes_3d,
             overlapped_thres=self.config["nms_overlapped_thres"],

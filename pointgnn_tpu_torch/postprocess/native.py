@@ -118,6 +118,8 @@ def get_lib():
                 f64p, ctypes.POINTER(ctypes.c_uint8),
                 ctypes.POINTER(ctypes.c_int64),
             ]
+            lib.pgnn_box_corners.restype = None
+            lib.pgnn_box_corners.argtypes = [f64p, ctypes.c_int64, f64p]
             u8p = ctypes.POINTER(ctypes.c_uint8)
             lib.pgnn_png_unfilter.restype = ctypes.c_int64
             lib.pgnn_png_unfilter.argtypes = [
@@ -134,39 +136,56 @@ def get_lib():
     return _lib
 
 
-NMS_COUNTS = ("pairs", "candidates", "clipped")
+NMS_COUNTS = ("pairs", "candidates", "clipped", "boxes")
+
+
+def _dptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def box_corners(boxes):
+    """``[n, 7]`` boxes -> ``[n, 8, 3]`` corners, as the native loop
+    computes the original boxes' corners: ``core.boxes.boxes_to_corners``
+    (``expand`` 1) in numpy's operations, its matrix products written out
+    as fused multiply-adds."""
+    boxes = np.ascontiguousarray(boxes, dtype=np.float64).reshape(-1, 7)
+    out = np.empty((len(boxes), 8, 3), dtype=np.float64)
+    get_lib().pgnn_box_corners(_dptr(boxes), len(boxes), _dptr(out))
+    return out
 
 
 def greedy_nms(boxes, corners, classes, scores, threshold, merge, rescore):
     """The native greedy loop: ``boxes`` [n, 7] sorted by decreasing
-    score, ``corners`` [n, 8, 3] of the original (possibly quantized)
-    boxes, ``classes`` [n], ``scores`` [n].  Returns ``(keep, scores,
-    boxes)`` as ``postprocess.nms._greedy_nms`` does, and a dict of its
-    counts over the survivors' pairs (:data:`NMS_COUNTS`): ``pairs``, the
-    kept same-class later boxes (what a scan of every later box tests);
-    ``candidates``, those the grid hands to the bounds test; ``clipped``,
-    those whose bounds meet, clipped once each."""
+    score, ``classes`` [n], ``scores`` [n]; ``corners`` [n, 8, 3] of the
+    original boxes (the quantized variant's), or None: the loop computes
+    them itself (:func:`box_corners`).  Returns ``(keep, scores, boxes)``
+    as ``postprocess.nms._greedy_nms`` does, and a dict of its counts
+    (:data:`NMS_COUNTS`): over the survivors' pairs, ``pairs``, the kept
+    same-class later boxes (what a scan of every later box tests);
+    ``candidates``, those the grid hands to the bounds test;
+    ``clipped``, those whose bounds meet, clipped once each; and
+    ``boxes``, the boxes whose corners the loop computed (``n`` when
+    ``corners`` is None, else 0).  An input not yet float64 is converted
+    once; no input is written to."""
     n = len(scores)
     boxes = np.ascontiguousarray(boxes, dtype=np.float64)
-    corners = np.ascontiguousarray(corners, dtype=np.float64)
+    if corners is not None:
+        corners = np.ascontiguousarray(corners, dtype=np.float64)
     classes = np.ascontiguousarray(classes, dtype=np.int64)
-    if boxes.shape != (n, 7) or corners.shape != (n, 8, 3) \
-            or classes.shape != (n,):
-        raise ValueError("greedy_nms: shapes %s %s %s for %d scores"
-                         % (boxes.shape, corners.shape, classes.shape, n))
+    if boxes.shape != (n, 7) or classes.shape != (n,) or (
+            corners is not None and corners.shape != (n, 8, 3)):
+        raise ValueError("greedy_nms: shapes %s %s %s for %d scores" % (
+            boxes.shape, None if corners is None else corners.shape,
+            classes.shape, n))
     out_scores = np.array(scores, dtype=np.float64, copy=True)
     out_boxes = np.empty_like(boxes)
     keep = np.empty((n,), dtype=np.uint8)
     counts = np.zeros((len(NMS_COUNTS),), dtype=np.int64)
-
-    def dptr(a):
-        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
-
     get_lib().pgnn_nms(
-        dptr(boxes), dptr(corners),
+        _dptr(boxes), None if corners is None else _dptr(corners),
         classes.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        dptr(out_scores), n, float(threshold), int(merge), int(rescore),
-        dptr(out_boxes), keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        _dptr(out_scores), n, float(threshold), int(merge), int(rescore),
+        _dptr(out_boxes), keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     return (keep.astype(bool), out_scores, out_boxes,

@@ -11,14 +11,19 @@ With the default overlap, :func:`iou.overlapped_boxes_3d`, the greedy
 loop runs natively (``csrc/host/nms.cpp`` through
 :mod:`postprocess.native`, which raises if it cannot be built); any
 other ``overlapped_fn`` runs the numpy loop, the plain version the tests
-hold the native one against.  The native loop takes each survivor's
-candidates from a grid over the boxes' x-z bounds: a pair whose
-axis-aligned bounds do not meet overlaps by 0.0, which no threshold >= 0
-exceeds, so only pairs whose bounds meet are tested (a negative threshold
-tests every pair).  It tests them in index order with the same
-arithmetic as the JAX package's native loop, and equals it bit for bit.
-``counters``, a dict, gets the native loop's pair counts added to it
-(:func:`native.greedy_nms`); the numpy loop leaves it as it is.
+hold the native one against.  The native loop computes the original
+boxes' corners itself, with :func:`boxes_3d_to_corners`'s arithmetic
+(:func:`native.box_corners`), so the Python around it is the score
+sort and the gather of the kept boxes; the quantized variant
+(:func:`nms_boxes_3d`) rounds numpy's corners and hands them to it, and
+the numpy loop computes its corners with numpy.  The native loop takes
+each survivor's candidates from a grid over the boxes' x-z bounds: a
+pair whose axis-aligned bounds do not meet overlaps by 0.0, which no
+threshold >= 0 exceeds, so only pairs whose bounds meet are tested (a
+negative threshold tests every pair).  It tests them in index order with
+the same arithmetic as the JAX package's native loop, and equals it bit
+for bit.  ``counters``, a dict, gets the native loop's counts added to
+it (:func:`native.greedy_nms`); the numpy loop leaves it as it is.
 """
 
 import numpy as np
@@ -43,18 +48,22 @@ def bboxes_sort(classes, scores, bboxes, top_k=400, attributes=None):
 
 def _greedy_nms(classes, scores, bboxes, nms_threshold, overlapped_fn,
                 merge, rescore, quantize_factor=None, counters=None):
-    bboxes = np.array(bboxes, dtype=np.float64, copy=True)
-    scores = np.array(scores, copy=True)
-    corners = boxes_3d_to_corners(bboxes)
-    if quantize_factor is not None:
-        corners = np.int32(corners * quantize_factor).astype(np.float64)
     if overlapped_fn is iou.overlapped_boxes_3d:
+        corners = None  # the native loop computes them
+        if quantize_factor is not None:
+            corners = np.int32(boxes_3d_to_corners(bboxes)
+                               * quantize_factor).astype(np.float64)
         keep, scores, bboxes, counts = native.greedy_nms(
             bboxes, corners, classes, scores, nms_threshold, merge, rescore)
         if counters is not None:
             for key, val in counts.items():
                 counters[key] = counters.get(key, 0) + val
         return keep, scores, bboxes
+    bboxes = np.array(bboxes, dtype=np.float64, copy=True)
+    scores = np.array(scores, copy=True)
+    corners = boxes_3d_to_corners(bboxes)
+    if quantize_factor is not None:
+        corners = np.int32(corners * quantize_factor).astype(np.float64)
     n = len(scores)
     keep = np.ones(n, dtype=bool)
     for i in range(n - 1):

@@ -1,8 +1,9 @@
 """The port's native merge-NMS (``csrc/host/nms.cpp``) against the JAX
 package's native NMS (bitwise: the same arithmetic in the same order,
 over every pair, where the port tests only the pairs its grid finds)
-and against the port's own numpy loop (the plain version); its pair
-counts against a replay of the greedy loop."""
+and against the port's own numpy loop (the plain version); the corners
+it computes against numpy's; its pair counts against a replay of the
+greedy loop."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import pytest
 from pointgnn_tpu.graph import _native as jax_native
 from pointgnn_tpu.postprocess import nms as jax_nms
 from pointgnn_tpu_torch import configs
+from pointgnn_tpu_torch.core import boxes as box_ops
 from pointgnn_tpu_torch.infer import InferencePipeline
 from pointgnn_tpu_torch.postprocess import iou, native
 from pointgnn_tpu_torch.postprocess import nms
@@ -147,11 +149,111 @@ def test_empty_input():
         )
         assert len(cls) == 0 and boxes.shape == (0, 7) and len(scores) == 0
         assert attr.shape == (0, 2)
-    keep, scores, boxes, counts = native.greedy_nms(
-        np.zeros((0, 7)), np.zeros((0, 8, 3)), np.zeros(0, np.int64),
-        np.zeros(0), 0.1, True, True)
-    assert keep.shape == (0,) and scores.shape == (0,)
-    assert counts == dict(pairs=0, candidates=0, clipped=0)
+    for corners in (np.zeros((0, 8, 3)), None):
+        keep, scores, boxes, counts = native.greedy_nms(
+            np.zeros((0, 7)), corners, np.zeros(0, np.int64),
+            np.zeros(0), 0.1, True, True)
+        assert keep.shape == (0,) and scores.shape == (0,)
+        assert counts == dict(pairs=0, candidates=0, clipped=0, boxes=0)
+
+
+def _edge_boxes():
+    """Boxes at yaw 0 (both signs), +-pi, +-pi/2, 2 pi and large |yaw|,
+    of zero, negative, tiny and huge sizes, at centers with signed
+    zeros."""
+    sizes = [(0.0, 0.0, 0.0), (-0.0, -0.0, -0.0), (-1.0, -2.0, -3.0),
+             (4.0, 1.5, 2.0), (1e-300, 1e-300, 1e-300), (1e300, 1e300, 1e300)]
+    yaws = [0.0, -0.0, np.pi, -np.pi, np.pi / 2, -np.pi / 2, 2 * np.pi,
+            123.456, 1e6, -1e6, 1e15]
+    centers = [(1.5, -0.0, 0.0), (0.0, 0.0, -0.0), (-30.25, 1.75, 60.5)]
+    return np.array([[*c, *size, yaw] for c in centers for size in sizes
+                     for yaw in yaws])
+
+
+CORNER_CASES = {
+    "trials": lambda: np.concatenate([t[1] for t in _trials()]),
+    "cell_sized": lambda: np.concatenate(
+        [t[1] for t in _cell_sized_trials()]),
+    "edge": _edge_boxes,
+}
+
+
+@pytest.mark.parametrize("case", sorted(CORNER_CASES))
+def test_native_corners_equal_numpy_bitwise(case):
+    """The corners the native loop computes equal
+    ``core.boxes.boxes_to_corners`` byte for byte."""
+    boxes = CORNER_CASES[case]()
+    want = box_ops.boxes_to_corners(boxes)
+    got = native.box_corners(boxes)
+    assert got.shape == want.shape == (len(boxes), 8, 3)
+    assert got.tobytes() == want.tobytes()
+
+
+def _no_numpy_corners(*args, **kwargs):
+    raise AssertionError("boxes_to_corners called")
+
+
+@pytest.mark.parametrize("variant", VARIANTS[1:])
+def test_default_overlap_computes_no_numpy_corners(variant, monkeypatch):
+    """With the default overlap the unquantized variants hand the native
+    loop no corners: it computes them, and counts every box in
+    ``boxes``."""
+    classes, boxes, scores, thres = _cell_sized_trials()[0]
+    kw = dict(overlapped_thres=thres, appr_factor=100.0, top_k=-1)
+    want = getattr(nms, variant)(classes, boxes, scores, **kw)
+    monkeypatch.setattr(box_ops, "boxes_to_corners", _no_numpy_corners)
+    counts = {}
+    got = getattr(nms, variant)(classes, boxes, scores, counters=counts,
+                                **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.tobytes() == b.tobytes()
+    assert counts["boxes"] == len(scores)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_numpy_loop_and_quantized_variant_compute_numpy_corners(
+        variant, monkeypatch):
+    """The numpy loop (another ``overlapped_fn``) and the quantized
+    variant still take their corners from ``boxes_to_corners``; the
+    quantized variant's native loop then computes none."""
+    classes, boxes, scores, thres = _trials()[0]
+    calls = []
+    inner = box_ops.boxes_to_corners
+
+    def counted(*args, **kwargs):
+        calls.append(len(args[0]))
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(box_ops, "boxes_to_corners", counted)
+    kw = dict(overlapped_thres=thres, appr_factor=100.0, top_k=-1)
+    fn = getattr(nms, variant)
+    fn(classes, boxes, scores, overlapped_fn=_python_fn, **kw)
+    assert calls and calls[0] == len(scores)
+    calls.clear()
+    counts = {}
+    fn(classes, boxes, scores, counters=counts, **kw)
+    if variant == "nms_boxes_3d":
+        assert calls == [len(scores)] and counts["boxes"] == 0
+    else:
+        assert calls == [] and counts["boxes"] == len(scores)
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_native_corners_give_the_loop_of_numpy_corners(trial):
+    """The loop given no corners equals the loop given numpy's, bitwise,
+    with the same pair counts; ``boxes`` reads the input size, and 0
+    where the corners were given."""
+    classes, boxes, scores, thres = _cell_sized_trials()[trial]
+    boxes, corners, classes, scores = _sorted_native_input(
+        classes, boxes, scores)
+    given = native.greedy_nms(boxes, corners, classes, scores, thres,
+                              True, True)
+    own = native.greedy_nms(boxes, None, classes, scores, thres, True,
+                            True)
+    for a, b in zip(own[:3], given[:3]):
+        assert a.tobytes() == b.tobytes()
+    assert own[3] == dict(given[3], boxes=len(scores))
+    assert given[3]["boxes"] == 0
 
 
 def _sorted_native_input(classes, boxes, scores):
@@ -251,7 +353,7 @@ def test_pipeline_adds_the_nms_counts():
         np.ones_like(classes), boxes, scores, appr_factor=100.0,
         overlapped_thres=pipe.config["nms_overlapped_thres"],
         counters=want)
-    assert want["pairs"] > 0
+    assert want["pairs"] > 0 and want["boxes"] == len(scores)
     for calls in (1, 2):
         pipe._nms(hyp_cls, scores, boxes, boxes[:, :3])
         assert pipe.nms_counters == {k: calls * v for k, v in want.items()}
